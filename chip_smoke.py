@@ -6,8 +6,9 @@
 Phases (each prints one JSON line; any failure exits non-zero):
 
 1. device: the card's name and power limit from nvidia-smi.
-2. kernels: build every CUDA kernel from ``mlamg_torch/ops/csrc`` with nvcc,
-   then hold ``well_spmv`` against its plain PyTorch version
+2. kernels: build every CUDA kernel from ``mlamg_torch/ops/csrc`` with nvcc
+   (one process per source, all started together), then hold ``well_spmv``
+   against its plain PyTorch version
    (``well_spmv_reference``) to 1e-5 * max|y|, plain and affine
    (alpha=-1, c), on the RCM-ordered random-hull FEM matrix and on a small
    banded matrix with uneven row degrees; time kernel, plain version and
@@ -25,12 +26,32 @@ Phases (each prints one JSON line; any failure exits non-zero):
    the same cycle on the CPU.  Times a W-cycle with CUDA events and reads
    a torch.profiler trace of three W-cycles for the device's busy time and
    idle share.
+4. dia_kernel: hold ``dia_spmv`` against ``dia_spmv_reference`` (plain and
+   affine, 1e-5 * max|y|) on the 4096^2 five-point Poisson and on a
+   random banded matrix with n = 128*64 + 37; time kernel, plain version
+   and the torch.sparse CSR matvec on the 4096^2 fine level.
+5. structured: the all-DIA hierarchy as bench.py's ``bench_vcycle_16m``
+   drives the JAX package: ``build_structured_hierarchy(kind="bilinear",
+   sides=(2,)*7, min_coarse=900)`` on the 4096^2 Poisson (16.8M dofs), then
+   Chebyshev V-cycles (nu=2) from a seed-0 x0 with b = 0.  Checks the conv
+   factor (bench formula over 6 cycles) against the JAX package's 0.1393
+   (+-0.03), the ``dia_spmv`` launches of setup and cycles against the
+   counts derived from the hierarchy, the kernel on every level operator,
+   and a seed-1 random right-hand side solved to a float64 relative
+   residual below 1e-3.  Times a V-cycle (CUDA events and wall clock) and
+   reads a torch.profiler trace of three V-cycles.
+6. twolevel: ``bench_twolevel``'s configuration: ``twolevel_solve`` on the
+   512^2 Poisson with a factored SA prolongator over 16x16 boxes
+   (omega 0.65) and an inverse coarse solve, 24 iterations fused and
+   unfused; checks the kernel on the S and S^T factors and the launches.
+7. small_structured: one 64^2 bilinear V-cycle and one 64^2 box-SA fused
+   two-level iteration on the card against the same on the CPU.
 
-Then one line ``{"kernels": [...]}`` with each kernel's launches on the
+Then one line ``{"kernels": [...]}`` with each kernel's launches on its
 main path, its largest error against the plain version over every check,
 its time, the plain version's and the library call's time, and its bound
-(from the stored nonzeros; ``bound_ell_ms`` adds the ELL padding slots);
-the nvidia-smi line;
+(``well_spmv``: from the stored nonzeros, ``bound_ell_ms`` adds the ELL
+padding slots; ``dia_spmv``: (D + 2) * 4 B per row); the nvidia-smi line;
 and last ``{"ok": true, "device": {...}}``.
 """
 
@@ -40,6 +61,7 @@ import json
 import subprocess
 import tempfile
 import time
+from functools import partial
 
 import numpy as np
 
@@ -51,6 +73,10 @@ REF_CONV = 0.4811  # JAX package, same configuration (BENCH_r05.json)
 CONV_TOL = 0.03
 MAX_CYCLES = 20
 KERNEL_RTOL = 1e-5
+GRID = 4096  # structured path: GRID^2 five-point Poisson (bench.py bench_vcycle_16m)
+REF_CONV_16M = 0.1393  # JAX package, same configuration (BENCH_r05.json)
+VCYCLE = dict(nu=2, smoother="chebyshev")
+TWOLEVEL_GRID, TWOLEVEL_SIDE, TWOLEVEL_ITERS = 512, 16, 24  # bench.py bench_twolevel
 
 
 def emit(obj) -> None:
@@ -129,16 +155,10 @@ def banded_matrix(rng, n: int = 700, band: int = 60):
 
 
 def kernel_phase(Ap, rng) -> dict:
-    """Build the kernels, check well_spmv, time it (plain form, L2-cold
-    operator: its 8 B per slot exceed the 50 MB L2 at the main path's
-    fine level)."""
+    """Check well_spmv and time it (plain form, L2-cold operator: its 8 B
+    per slot exceed the 50 MB L2 at the main path's fine level)."""
     import torch
-    from mlamg_torch.ops import _build
     from mlamg_torch.ops.unstructured import WindowedELL, well_spmv, well_spmv_reference
-
-    t0 = time.time()
-    libs = _build.build_kernels()
-    build_s = time.time() - t0
 
     W = WindowedELL.from_scipy(Ap, device="cuda")
     errs = [check_kernel(W, rng, "hull"),
@@ -194,8 +214,6 @@ def kernel_phase(Ap, rng) -> dict:
         "nnz": nnz,
         "w": w,
         "n_pad": n_pad,
-        "build_s": build_s,
-        "libraries": sorted(p.name for p in libs.values()),
     }
 
 
@@ -209,11 +227,11 @@ def launches_per_cycle(h, nu: int, gamma: int) -> int:
     )
 
 
-def device_trace(fn, iters: int) -> dict:
+def device_trace(fn, iters: int, kernel: str = "well_spmv") -> dict:
     """Profile ``iters`` calls of ``fn`` with torch.profiler and read the
     device's timeline: busy time (union of kernel, copy and set intervals)
     against the span from the first to the last device activity, and
-    well_spmv's own kernel time.  All times in ms per call."""
+    ``kernel``'s own time.  All times in ms per call."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -239,14 +257,20 @@ def device_trace(fn, iters: int) -> dict:
             busy_us += hi - max(lo, end)
             end = hi
     span_us = spans[-1][1] - spans[0][0] if spans else 0.0
-    spmv = [hi - lo for lo, hi, name in spans if "well_spmv" in name]
+    spmv = [hi - lo for lo, hi, name in spans if kernel in name]
+    by_name: dict = {}
+    for lo, hi, name in spans:
+        t, k = by_name.get(name, (0.0, 0))
+        by_name[name] = (t + hi - lo, k + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
     return {
         "device_ops": len(spans) / iters,
         "busy_ms": busy_us / iters / 1e3,
         "span_ms": span_us / iters / 1e3,
         "idle_share": (1.0 - busy_us / span_us) if span_us > 0 else None,
-        "well_spmv_kernels": len(spmv) / iters,
-        "well_spmv_ms": sum(spmv) / iters / 1e3,
+        f"{kernel}_kernels": len(spmv) / iters,
+        f"{kernel}_ms": sum(spmv) / iters / 1e3,
+        "top_ops": [[name[:100], t / iters / 1e3, k / iters] for name, (t, k) in top],
     }
 
 
@@ -363,14 +387,336 @@ def small_cycle_phase() -> dict:
     return {"phase": "small_cycle", "n": A.shape[0], "max_abs_err": err, "scale": scale}
 
 
+def poisson2d(nx: int):
+    """nx^2 five-point Poisson in float32 (bench.py's construction)."""
+    import scipy.sparse as sp
+
+    I = sp.eye(nx, format="csr", dtype=np.float32)
+    T = sp.diags([-1.0, 2.0, -1.0], [-1, 0, 1], shape=(nx, nx), dtype=np.float32)
+    return (sp.kron(I, T) + sp.kron(T, I)).tocsr()
+
+
+def check_dia_kernel(A, rng, label: str) -> tuple[float, float]:
+    """Hold dia_spmv against dia_spmv_reference, plain and affine.
+    Returns the largest (absolute, relative) error of the two calls."""
+    import torch
+    from mlamg_torch.ops.dia import dia_spmv, dia_spmv_reference
+
+    n = A.shape[0]
+    x = torch.from_numpy(rng.randn(n).astype(np.float32)).to(A.device)
+    c = torch.from_numpy(rng.randn(n).astype(np.float32)).to(A.device)
+    abs_err = rel_err = 0.0
+    for form, cc, alpha in (("plain", None, 1.0), ("affine", c, -1.0)):
+        y = dia_spmv(A, x, cc, alpha)
+        torch.cuda.synchronize()
+        ref = dia_spmv_reference(A, x, cc, alpha)
+        check(bool(torch.isfinite(y).all()), f"dia_spmv returned non-finite values on {label}")
+        err, scale = float((y - ref).abs().max()), float(ref.abs().max())
+        check(err <= KERNEL_RTOL * scale,
+              f"dia_spmv {form} on {label}: max err {err} > {KERNEL_RTOL} * {scale}")
+        abs_err, rel_err = max(abs_err, err), max(rel_err, err / scale)
+    return abs_err, rel_err
+
+
+def dia_kernel_phase(A_sp, Ad, rng) -> tuple[dict, list]:
+    """Check dia_spmv on the fine Poisson level and a ragged banded matrix,
+    time it on the fine level (D = 5: its 470 MB exceed the 50 MB L2)."""
+    import scipy.sparse as sp
+    import torch
+    from mlamg_torch.ops.dia import DIA, dia_spmv, dia_spmv_reference
+
+    n_b = 128 * 64 + 37
+    offsets = [-130, -128, -1, 0, 1, 127, 256]
+    banded = sp.diags([rng.randn(n_b - abs(o)) for o in offsets], offsets,
+                      shape=(n_b, n_b)).tocsr().astype(np.float32)
+    errs = [check_dia_kernel(Ad, rng, "4096^2 Poisson"),
+            check_dia_kernel(DIA.from_scipy(banded, device="cuda"), rng, "banded")]
+
+    n, D = Ad.shape[0], len(Ad.offsets)
+    x = torch.from_numpy(rng.randn(n).astype(np.float32)).cuda()
+    c = torch.from_numpy(rng.randn(n).astype(np.float32)).cuda()
+    A_csr = torch.sparse_csr_tensor(
+        torch.from_numpy(A_sp.indptr.astype(np.int64)),
+        torch.from_numpy(A_sp.indices.astype(np.int64)),
+        torch.from_numpy(A_sp.data.astype(np.float32)),
+        size=A_sp.shape, check_invariants=False,
+    ).cuda()
+    y_ref = dia_spmv_reference(Ad, x)
+    check(float((torch.mv(A_csr, x) - y_ref).abs().max()) <= KERNEL_RTOL * float(y_ref.abs().max()),
+          "torch.sparse CSR matvec disagrees with the plain DIA version")
+
+    ms = cuda_ms(lambda: dia_spmv(Ad, x))
+    plain_ms = cuda_ms(lambda: dia_spmv_reference(Ad, x))
+    library_ms = cuda_ms(lambda: torch.mv(A_csr, x))
+    affine_ms = cuda_ms(lambda: dia_spmv(Ad, x, c, -1.0))
+    affine_plain_ms = cuda_ms(lambda: dia_spmv_reference(Ad, x, c, -1.0))
+    del A_csr
+    # least bytes: each diagonal value read once, x read, y written (c read
+    # in the affine form); 2 flops per stored value (+2 per row affine)
+    bound_ms = max((D + 2) * 4 * n / HBM_BYTES_PER_S, 2 * D * n / F32_FLOPS) * 1e3
+    affine_bound_ms = max((D + 3) * 4 * n / HBM_BYTES_PER_S,
+                          (2 * D + 2) * n / F32_FLOPS) * 1e3
+    return {
+        "name": "dia_spmv",
+        "route": "cuda",
+        "source": "mlamg_torch/ops/csrc/dia_spmv.cu",
+        "replaces": "mlamg_tpu/ops/pallas_kernels.py:60",
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": "bytes",
+        "library_ms": library_ms,
+        "affine_ms": affine_ms,
+        "affine_plain_ms": affine_plain_ms,
+        "affine_bound_ms": affine_bound_ms,
+        "n": n,
+        "D": D,
+        "nnz": int(A_sp.nnz),
+    }, errs
+
+
+def vcycle_launches(h, nu: int, gamma: int = 1) -> int:
+    """dia_spmv launches of one Chebyshev cycle: per level visit 2*(nu+1)
+    Chebyshev residuals, one residual, and one SpMV per factor each in
+    restriction and interpolation (none for a bilinear P); level l is
+    visited gamma**l times."""
+    return sum(
+        gamma ** l * (2 * (nu + 1) + 1 + 2 * len(getattr(P, "Ss", ())))
+        for l, P in enumerate(h.Ps)
+    )
+
+
+def probe_launches(h) -> int:
+    """dia_spmv launches of the setup: per level one SpMV of A and one per
+    factor each way, for each of the probe's (2Ry+1)(2Rx+1) colours."""
+    from mlamg_torch.mg.structured import probe_reach
+
+    total = 0
+    for A, P in zip(h.As, h.Ps):
+        _, (Ry, Rx) = probe_reach(A, P)
+        total += (2 * Ry + 1) * (2 * Rx + 1) * (1 + 2 * len(getattr(P, "Ss", ())))
+    return total
+
+
+def stage_seconds(h) -> dict:
+    """Host seconds of the structured setup's stages, re-run on the built
+    hierarchy: each level's Galerkin probe, then the coarse inverse."""
+    import torch
+    from mlamg_torch.mg.coarse import CoarseSolver
+    from mlamg_torch.mg.structured import dia_galerkin_probe
+
+    probe_s = []
+    for A, P in zip(h.As, h.Ps):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        A_next = dia_galerkin_probe(A, P)
+        torch.cuda.synchronize()
+        probe_s.append(time.time() - t0)
+    t0 = time.time()
+    CoarseSolver.factor(A_next.todense(), method="inverse")
+    torch.cuda.synchronize()
+    return {"probe_per_level": probe_s, "coarse_inverse": time.time() - t0}
+
+
+def structured_phase(A_sp, Ad, stages: dict, rng) -> tuple[dict, int, list]:
+    import torch
+    from mlamg_torch.mg.cycle import vcycle
+    from mlamg_torch.mg.structured import build_structured_hierarchy
+    from mlamg_torch.ops.matmul import spmv_affine
+    from mlamg_torch.ops.unstructured import LAUNCHES
+
+    n = Ad.shape[0]
+    x0 = torch.from_numpy(np.random.RandomState(0).randn(n).astype(np.float32)).cuda()
+    b = torch.zeros_like(x0)
+    norm0 = float(torch.linalg.vector_norm(x0))
+
+    # --- the main path: counts set to 0 just before, read just after ---
+    LAUNCHES.clear()
+    t0 = time.time()
+    h = build_structured_hierarchy(Ad, GRID, GRID, sides=(2,) * 7, min_coarse=900,
+                                   kind="bilinear")
+    torch.cuda.synchronize()
+    setup_s = time.time() - t0
+    setup_launches = LAUNCHES["dia_spmv"]
+    x, norms = x0, []
+    t0 = time.time()
+    while len(norms) < 30 and (len(norms) < 6 or norms[-1] > 1e-6 * norm0):
+        x = vcycle(h, b, x, **VCYCLE)
+        norms.append(float(torch.linalg.vector_norm(x)))
+    cycles_s = time.time() - t0
+    launches = LAUNCHES["dia_spmv"]
+    # ---------------------------------------------------------------------
+
+    per_cycle = vcycle_launches(h, VCYCLE["nu"])
+    check(h.num_levels == 7 and h.coarse.lu.shape == (1024, 1024),
+          f"hierarchy has {h.num_levels} smoothed levels, coarse {tuple(h.coarse.lu.shape)}")
+    check(setup_launches == probe_launches(h),
+          f"setup launched dia_spmv {setup_launches} times, expected {probe_launches(h)}")
+    check(launches - setup_launches == len(norms) * per_cycle,
+          f"{len(norms)} V-cycles launched dia_spmv {launches - setup_launches} times, "
+          f"expected {len(norms) * per_cycle}")
+    check(bool(np.isfinite(norms).all()), "V-cycles produced non-finite values")
+    conv = float((norms[5] / norms[1]) ** (1.0 / 4))  # bench.py: 6 cycles, skip the first
+    check(abs(conv - REF_CONV_16M) <= CONV_TOL,
+          f"conv factor {conv} not within {CONV_TOL} of {REF_CONV_16M}")
+    check(norms[-1] <= 1e-6 * norm0, f"||x|| fell only to {norms[-1] / norm0} in {len(norms)} cycles")
+
+    level_errs = [check_dia_kernel(A, rng, f"level {l}") for l, A in enumerate(h.As)]
+
+    cycle_ms = cuda_ms(lambda: vcycle(h, b, x0, **VCYCLE), iters=10, warmup=2)
+    t0 = time.time()
+    for _ in range(10):
+        vcycle(h, b, x0, **VCYCLE)
+    torch.cuda.synchronize()
+    cycle_wall_ms = (time.time() - t0) / 10 * 1e3
+    trace = device_trace(lambda: vcycle(h, b, x0, **VCYCLE), iters=3, kernel="dia_spmv")
+
+    # random right-hand side: V-cycles until the f32 residual reaches
+    # 1e-6 * ||b|| or stops falling, then the float64 residual on the host
+    rhs = np.random.RandomState(1).randn(n).astype(np.float32)
+    bnorm = float(np.linalg.norm(rhs))
+    bt = torch.from_numpy(rhs).cuda()
+    xs, res = torch.zeros_like(bt), []
+    for _ in range(20):
+        xs = vcycle(h, bt, xs, **VCYCLE)
+        res.append(float(torch.linalg.vector_norm(spmv_affine(Ad, xs, c=bt, alpha=-1.0))))
+        if res[-1] <= 1e-6 * bnorm or (len(res) > 1 and res[-1] >= res[-2]):
+            break
+    sol = xs.cpu().numpy().astype(np.float64)
+    rel_res = float(np.linalg.norm(A_sp.astype(np.float64) @ sol - rhs) / bnorm)
+    check(rel_res < 1e-3, f"random-rhs float64 relative residual {rel_res} >= 1e-3")
+
+    return {
+        "phase": "structured",
+        "n": n,
+        "nnz": int(A_sp.nnz),
+        "levels": [{"n": A.shape[0], "D": len(A.offsets)} for A in h.As],
+        "coarse_k": int(h.coarse.lu.shape[0]),
+        "setup_s": setup_s,
+        "setup_stages_s": {**stages, **stage_seconds(h)},
+        "conv": conv,
+        "cycles_to_1e-6": len(norms),
+        "norms": norms,
+        "cycles_s": cycles_s,
+        "dia_spmv_launches_setup": setup_launches,
+        "dia_spmv_launches_cycles": launches - setup_launches,
+        "dia_spmv_launches_per_vcycle": per_cycle,
+        "level_kernel_rel_err": [e[1] for e in level_errs],
+        "ms_per_vcycle": cycle_ms,
+        "wall_ms_per_vcycle": cycle_wall_ms,
+        "vcycle_trace": trace,
+        "rhs_f32_rel_residuals": [r / bnorm for r in res],
+        "rhs_cycles": len(res),
+        "rhs_f64_rel_residual": rel_res,
+    }, launches, level_errs
+
+
+def twolevel_phase(rng) -> tuple[dict, int, list]:
+    """bench.py bench_twolevel through the port, fused and unfused."""
+    import torch
+    from mlamg_torch.mg.coarse import CoarseSolver
+    from mlamg_torch.mg.cycle import coarse_operator, twolevel_solve
+    from mlamg_torch.mg.factored import BoxAgg2D, factored_sa
+    from mlamg_torch.ops.dia import DIA
+    from mlamg_torch.ops.unstructured import LAUNCHES
+
+    nx, side, iters = TWOLEVEL_GRID, TWOLEVEL_SIDE, TWOLEVEL_ITERS
+    A_sp = poisson2d(nx)
+    n = A_sp.shape[0]
+    x0 = torch.from_numpy(np.random.RandomState(0).randn(n).astype(np.float32)).cuda()
+    b = torch.zeros_like(x0)
+
+    # --- the main path: counts set to 0 just before, read just after ---
+    LAUNCHES.clear()
+    t0 = time.time()
+    Ad = DIA.from_scipy(A_sp)
+    P = factored_sa(Ad, BoxAgg2D(ny=nx, nx=nx, sy=side, sx=side), omega=0.65)
+    coarse = CoarseSolver.factor(coarse_operator(Ad, P), method="inverse")
+    torch.cuda.synchronize()
+    setup_s = time.time() - t0
+    out = {}
+    for fused in (True, False):
+        LAUNCHES.clear()
+        _, conv, _, it = twolevel_solve(Ad, P, b, x0, res_tol=0.0, max_iter=iters,
+                                        coarse=coarse, fused_jacobi=fused)
+        torch.cuda.synchronize()
+        out[fused] = dict(conv=conv, iters=it, launches=LAUNCHES["dia_spmv"])
+    # ---------------------------------------------------------------------
+
+    per_iter = 1 + 1 + 2 + 2 * len(P.Ss)  # pre, post, two residuals, S and S^T
+    for fused, r in out.items():
+        check(r["iters"] == iters and 0.0 < r["conv"] < 1.0 and np.isfinite(r["conv"]),
+              f"two-level (fused={fused}): conv {r['conv']} after {r['iters']} iterations")
+        check(r["launches"] == iters * per_iter,
+              f"two-level (fused={fused}) launched dia_spmv {r['launches']} times, "
+              f"expected {iters * per_iter}")
+    check(abs(out[True]["conv"] - out[False]["conv"]) <= 1e-3,
+          f"fused and unfused two-level conv differ: {out[True]['conv']} vs {out[False]['conv']}")
+
+    factor_errs = [check_dia_kernel(S, rng, f"512^2 SA factor {i}")
+                   for i, S in enumerate(P.Ss + P.Sts)]
+    solve = partial(twolevel_solve, Ad, P, b, x0, res_tol=0.0, max_iter=iters, coarse=coarse)
+    ms_fused = cuda_ms(lambda: solve(fused_jacobi=True), iters=3, warmup=1) / iters
+    ms_unfused = cuda_ms(lambda: solve(fused_jacobi=False), iters=3, warmup=1) / iters
+    return {
+        "phase": "twolevel",
+        "n": n,
+        "k": P.shape[1],
+        "setup_s": setup_s,
+        "conv_fused": out[True]["conv"],
+        "conv_unfused": out[False]["conv"],
+        "iters": iters,
+        "dia_spmv_launches_fused": out[True]["launches"],
+        "dia_spmv_launches_unfused": out[False]["launches"],
+        "dia_spmv_launches_per_iteration": per_iter,
+        "ms_per_iteration_fused": ms_fused,
+        "ms_per_iteration_unfused": ms_unfused,
+        "factor_kernel_rel_err": [e[1] for e in factor_errs],
+    }, out[True]["launches"] + out[False]["launches"], factor_errs
+
+
+def small_structured_phase() -> dict:
+    """One 64^2 bilinear V-cycle and one 64^2 box-SA fused two-level
+    iteration on the card against the same on the CPU (where dia_spmv is
+    the plain version)."""
+    import torch
+    from mlamg_torch.mg.cycle import twolevel_solve, vcycle
+    from mlamg_torch.mg.factored import BoxAgg2D, factored_sa
+    from mlamg_torch.mg.structured import build_structured_hierarchy
+    from mlamg_torch.ops.dia import DIA
+
+    A_sp = poisson2d(64)
+    x0 = np.random.RandomState(0).randn(A_sp.shape[0]).astype(np.float32)
+    out = {"vcycle": {}, "twolevel": {}}
+    for dev in ("cuda", "cpu"):
+        Ad = DIA.from_scipy(A_sp, device=dev)
+        x = torch.from_numpy(x0).to(dev)
+        h = build_structured_hierarchy(Ad, 64, 64, sides=(2,) * 6, min_coarse=16,
+                                       kind="bilinear")
+        out["vcycle"][dev] = vcycle(h, torch.zeros_like(x), x, **VCYCLE).cpu().numpy()
+        P = factored_sa(Ad, BoxAgg2D(64, 64, 4, 4), omega=0.65)
+        y, _, _, _ = twolevel_solve(Ad, P, torch.zeros_like(x), x, res_tol=0.0, max_iter=1,
+                                    fused_jacobi=True)
+        out["twolevel"][dev] = y.cpu().numpy()
+    res = {"phase": "small_structured", "n": A_sp.shape[0]}
+    for name, r in out.items():
+        err = float(np.abs(r["cuda"] - r["cpu"]).max())
+        scale = float(np.abs(r["cpu"]).max())
+        check(err <= 1e-4 * scale, f"small {name} cuda vs cpu: {err} > 1e-4 * {scale}")
+        res[f"{name}_max_abs_err"], res[f"{name}_scale"] = err, scale
+    return res
+
+
 def main() -> None:
     import torch
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: FAILED: torch.cuda.is_available() is false")
     import mlamg_torch  # noqa: F401  (fails outside the repository)
-    from mlamg_torch.data import Grid
     from mlamg_torch import native
+    from mlamg_torch.data import Grid
+    from mlamg_torch.ops import _build
+    from mlamg_torch.ops.dia import DIA
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -382,6 +728,12 @@ def main() -> None:
           "cuda": torch.version.cuda})
 
     t0 = time.time()
+    libs = _build.build_kernels()
+    emit({"phase": "build", "seconds": time.time() - t0,
+          "libraries": sorted(p.name for p in libs.values())})
+
+    # --- slice 1: the unstructured multilevel solve (well_spmv) ---
+    t0 = time.time()
     A = Grid.random_2d_unstructured(N_DOFS, seed=SEED).A.astype(np.float32)
     perm = native.rcm_ordering(A)
     Ap = A[perm][:, perm].tocsr()
@@ -390,15 +742,44 @@ def main() -> None:
 
     rng = np.random.RandomState(0)
     kernel = kernel_phase(Ap, rng)
-    emit({"phase": "kernels", **{k: kernel[k] for k in ("build_s", "max_rel_err", "ms")}})
+    emit({"phase": "kernels", **{k: kernel[k] for k in ("max_rel_err", "ms")}})
     path, launches, level_errs = path_phase(A, rng)
     emit(path)
     emit(small_cycle_phase())
-
     kernel["launches"] = launches
     kernel["max_abs_err"] = max(kernel["max_abs_err"], *(e[0] for e in level_errs))
     kernel["max_rel_err"] = max(kernel["max_rel_err"], *(e[1] for e in level_errs))
-    emit({"kernels": [kernel]})
+    del A, Ap
+
+    # --- slice 2: the structured all-DIA hierarchy (dia_spmv) ---
+    stages = {}
+    t0 = time.time()
+    A16 = poisson2d(GRID)
+    stages["matrix"] = time.time() - t0
+    t0 = time.time()
+    Ad = DIA.from_scipy(A16)
+    torch.cuda.synchronize()
+    stages["from_scipy"] = time.time() - t0
+    emit({"phase": "structured_matrix", "n": A16.shape[0], "nnz": int(A16.nnz),
+          "offsets": list(Ad.offsets), **stages, "native_dia": native.available()})
+    dia, dia_errs = dia_kernel_phase(A16, Ad, rng)
+    emit({"phase": "dia_kernel", **{k: dia[k] for k in ("ms", "plain_ms", "library_ms")}})
+    structured, dia_launches, level_errs = structured_phase(A16, Ad, stages, rng)
+    emit(structured)
+    del A16, Ad
+    twolevel, twolevel_launches, factor_errs = twolevel_phase(rng)
+    emit(twolevel)
+    emit(small_structured_phase())
+    all_errs = dia_errs + level_errs + factor_errs
+    dia.update(
+        launches=dia_launches,
+        launches_vcycles=structured["dia_spmv_launches_cycles"],
+        launches_twolevel=twolevel_launches,
+        max_abs_err=max(e[0] for e in all_errs),
+        max_rel_err=max(e[1] for e in all_errs),
+    )
+
+    emit({"kernels": [kernel, dia]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

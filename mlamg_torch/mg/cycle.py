@@ -1,11 +1,149 @@
-"""Convergence-factor readout (counterpart of ``mlamg_tpu/mg/cycle.py``
-:func:`_conv_factor`)."""
+"""Two-level solve, multilevel V-cycle and the convergence-factor readout
+(counterpart of ``mlamg_tpu/mg/cycle.py``).
+
+The JAX package runs each solve as one ``lax.while_loop``; here the loop
+is Python on the host and every SpMV goes through ``ops/matmul.py``, so a
+DIA operator on the card launches the ``dia_spmv`` kernel.  The stopping
+test reads each iteration's norm on the host.
+
+Ported: ``twolevel_solve`` with weighted Jacobi (fused or not) and
+Chebyshev with a given ``lmax``, ``Hierarchy``, ``vcycle`` and
+``vcycle_solve``, for dense and factored prolongators.  Not ported yet
+(``ROADMAP.md``): ``build_hierarchy``, sparse (CSR/ELL) prolongators, the
+``multicolor_gs`` smoother (Queue 1 item 4) and the power-iteration
+``lmax`` default of the Chebyshev smoother (Queue 1 item 1).
+"""
 
 from __future__ import annotations
 
+import dataclasses
 import math
+import numbers
+from typing import Tuple
 
 import torch
+
+from mlamg_torch.mg.coarse import CoarseSolver
+from mlamg_torch.mg.factored import BilinearP2D, FactoredSA, coarse_operator_factored
+from mlamg_torch.mg.smoothers import _dinv, chebyshev, jacobi
+from mlamg_torch.ops import matmul
+from mlamg_torch.ops.dia import DIA, dia_jacobi_operator
+
+
+def _is_factored(P) -> bool:
+    return isinstance(P, (FactoredSA, BilinearP2D))
+
+
+def _interp(P, v: torch.Tensor) -> torch.Tensor:
+    """P @ v for a dense or factored P."""
+    if _is_factored(P):
+        return P.interp(v)
+    if isinstance(P, torch.Tensor):
+        return P @ v
+    raise TypeError(f"_interp: unsupported prolongator {type(P).__name__}")
+
+
+def _restrict(P, v: torch.Tensor) -> torch.Tensor:
+    """P.T @ v for a dense or factored P."""
+    if _is_factored(P):
+        return P.restrict(v)
+    if isinstance(P, torch.Tensor):
+        return P.T @ v
+    raise TypeError(f"_restrict: unsupported prolongator {type(P).__name__}")
+
+
+def coarse_operator(A, P) -> torch.Tensor:
+    """Dense Galerkin coarse operator P^T A P."""
+    if _is_factored(P):
+        return coarse_operator_factored(A, P)
+    if isinstance(P, torch.Tensor):
+        return P.T @ matmul.spmm(A, P)
+    raise TypeError(f"coarse_operator: unsupported prolongator {type(P).__name__}")
+
+
+def twolevel_solve(
+    A,
+    P,
+    b: torch.Tensor,
+    x0: torch.Tensor,
+    *,
+    pre_smoothing_steps: int = 1,
+    post_smoothing_steps: int = 1,
+    jacobi_weight: float = 0.666,
+    res_tol: float | None = None,
+    error_tol: float | None = None,
+    max_iter: int = 500,
+    singular: bool = False,
+    smoother: str = "jacobi",
+    smoother_args: dict | None = None,
+    coarse: CoarseSolver | None = None,
+    fused_jacobi: bool | None = None,
+):
+    """Two-level AMG solve; returns (x, conv_factor, err_history, iters).
+
+    ``err_history`` is a (max_iter,) buffer, zero past ``iters``.
+    ``fused_jacobi`` rewrites each Jacobi sweep as the affine map
+    x' = (I - w D^-1 A) x + w D^-1 b, one ``dia_spmv`` pass; ``None`` means
+    on exactly for a DIA operator on CUDA (the JAX package's "blocked DIA
+    on a TPU").  Mathematically identical; rounding differs slightly.
+    """
+    if res_tol is None and error_tol is None:
+        raise RuntimeError("One of res_tol or error_tol must be set!")
+    tol = res_tol if res_tol is not None else error_tol
+    use_res = res_tol is not None
+    smoother_args = smoother_args or {}
+    if smoother == "multicolor_gs":
+        raise NotImplementedError(
+            "twolevel_solve: multicolor_gs is not ported yet (ROADMAP.md Queue 1 item 4)"
+        )
+    if smoother == "chebyshev" and "lmax" not in smoother_args:
+        raise NotImplementedError(
+            "twolevel_solve: the power-iteration lmax default is not ported yet "
+            "(ROADMAP.md Queue 1 item 1); pass smoother_args={'lmax': ...}"
+        )
+    if smoother not in ("jacobi", "chebyshev"):
+        raise ValueError(f"unknown smoother {smoother}")
+
+    Dinv = _dinv(A)
+    if coarse is None:
+        coarse = CoarseSolver.factor(coarse_operator(A, P), singular=singular)
+
+    if fused_jacobi is None:
+        fused_jacobi = isinstance(A, DIA) and A.device.type == "cuda"
+    M_fused = None
+    if fused_jacobi and smoother == "jacobi" and isinstance(A, DIA):
+        M_fused = dia_jacobi_operator(A, Dinv, jacobi_weight)
+        c_fused = jacobi_weight * Dinv * b
+
+    def smooth(x, nu):
+        if nu == 0:
+            return x
+        if M_fused is not None:
+            for _ in range(nu):
+                x = matmul.spmv_affine(M_fused, x, c=c_fused)
+            return x
+        if smoother == "jacobi":
+            return jacobi(A, b, x, Dinv, omega=jacobi_weight, nu=nu)
+        return chebyshev(A, b, x, smoother_args["lmax"], degree=nu + 1, Dinv=Dinv)
+
+    err = torch.zeros(max_iter, dtype=x0.dtype, device=x0.device)
+    x = x0
+    iters = 0
+    while iters < max_iter:
+        x = smooth(x, pre_smoothing_steps)
+        r = matmul.spmv_affine(A, x, c=b, alpha=-1.0)  # b - A x, fused
+        x = x + _interp(P, coarse.solve(_restrict(P, r)))
+        x = smooth(x, post_smoothing_steps)
+        if singular:
+            x = x - x.mean()
+        e = torch.linalg.vector_norm(
+            matmul.spmv_affine(A, x, c=b, alpha=-1.0) if use_res else x
+        )
+        err[iters] = e
+        iters += 1
+        if float(e) <= tol:
+            break
+    return x, _conv_factor(err, iters), err, iters
 
 
 def _conv_factor(err: torch.Tensor, iters: int) -> float:
@@ -13,11 +151,13 @@ def _conv_factor(err: torch.Tensor, iters: int) -> float:
     residual norms of ``err[:iters]``; 0.0 below 6 iterations (or with a
     zero base), 1.0 for a non-finite history (the failure convention of
     the JAX package).  The ratio is taken in ``err``'s dtype and the root
-    in double precision."""
+    in double precision.  Indices are clamped to the buffer, as JAX clamps
+    them (below 3 iterations err_n is 0 and the base index is ``iters``)."""
     iters = int(iters)
     err_n = min(iters // 3, 10)
-    last = err[max(iters - 1, 0)]
-    base = err[max(iters - err_n, 0)]
+    top = err.shape[0] - 1
+    last = err[min(max(iters - 1, 0), top)]
+    base = err[min(max(iters - err_n, 0), top)]
     last_f, base_f = float(last), float(base)
     if not (math.isfinite(last_f) and math.isfinite(base_f)):
         return 1.0
@@ -25,3 +165,95 @@ def _conv_factor(err: torch.Tensor, iters: int) -> float:
         return 0.0
     conv = float(last / base) ** (1.0 / max(err_n - 1, 1))
     return conv if math.isfinite(conv) else 1.0
+
+
+# ---------------------------------------------------------------------------
+# Multilevel hierarchy
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class Hierarchy:
+    """Static-depth multilevel hierarchy (level 0 = finest).
+
+    ``As[l]`` level operator, ``Ps[l]`` prolongator level l+1 -> l,
+    ``Dinvs[l]`` inverse diagonal, ``coarse`` the factored coarsest
+    operator.  ``lmaxs[l]`` (host floats, optional) bounds the spectrum of
+    D^-1 A at level l for the Chebyshev smoother of :func:`vcycle`.
+    """
+
+    As: tuple
+    Ps: tuple
+    Dinvs: tuple
+    coarse: CoarseSolver
+    lmaxs: Tuple[float, ...] = ()
+
+    @property
+    def num_levels(self) -> int:
+        return len(self.As)
+
+
+def _level_spmv(A, x: torch.Tensor) -> torch.Tensor:
+    if isinstance(A, torch.Tensor):
+        return A @ x
+    return matmul.spmv(A, x)
+
+
+def vcycle(h: Hierarchy, b: torch.Tensor, x: torch.Tensor, *, omega: float = 0.666,
+           nu=1, smoother: str = "jacobi", lmin_frac: float = 1.0 / 15.0,
+           gamma: int = 1) -> torch.Tensor:
+    """One cycle through the hierarchy.
+
+    ``smoother="chebyshev"`` (needs ``h.lmaxs``) runs a degree-``nu+1``
+    Chebyshev polynomial per pre/post smooth, ``"jacobi"`` ``nu`` weighted
+    Jacobi sweeps.  ``nu`` is any integer (numpy's too) or a per-level
+    sequence whose last entry covers the deeper levels.  ``gamma=1`` is a
+    V-cycle, ``gamma=2`` a W-cycle."""
+    if smoother not in ("jacobi", "chebyshev"):
+        raise ValueError(f"unknown smoother {smoother}")
+
+    def descend(l, b, x):
+        A = h.As[l]
+        Dinv = h.Dinvs[l]
+        nu_l = int(nu) if isinstance(nu, numbers.Integral) else int(nu[min(l, len(nu) - 1)])
+
+        def smooth(x):
+            if smoother == "chebyshev":
+                return chebyshev(A, b, x, 1.1 * h.lmaxs[l], lmin_frac=lmin_frac,
+                                 degree=nu_l + 1, Dinv=Dinv)
+            for _ in range(nu_l):
+                x = x + omega * Dinv * (b - _level_spmv(A, x))
+            return x
+
+        x = smooth(x)
+        r = b - _level_spmv(A, x)
+        r_H = _restrict(h.Ps[l], r)
+        if l + 1 == len(h.As):
+            e_H = h.coarse.solve(r_H)
+        else:
+            e_H = descend(l + 1, r_H, torch.zeros_like(r_H))
+            for _ in range(gamma - 1):
+                e_H = descend(l + 1, r_H, e_H)
+        x = x + _interp(h.Ps[l], e_H)
+        return smooth(x)
+
+    return descend(0, b, x)
+
+
+def vcycle_solve(h: Hierarchy, b: torch.Tensor, x0: torch.Tensor, *,
+                 res_tol: float = 1e-10, max_iter: int = 200,
+                 omega: float = 0.666, nu: int = 1):
+    """Iterated Jacobi V-cycles with the same convergence-factor readout as
+    :func:`twolevel_solve`.  Returns (x, conv_factor, err, iters)."""
+    A = h.As[0]
+    err = torch.zeros(max_iter, dtype=x0.dtype, device=x0.device)
+    x = x0
+    iters = 0
+    while iters < max_iter:
+        x = vcycle(h, b, x, omega=omega, nu=nu)
+        e = torch.linalg.vector_norm(b - _level_spmv(A, x))
+        err[iters] = e
+        iters += 1
+        if float(e) <= res_tol:
+            break
+    return x, _conv_factor(err, iters), err, iters

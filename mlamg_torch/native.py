@@ -1,13 +1,14 @@
 """ctypes binding of the host C++ runtime ``native/mlamg_native.cpp``
-(counterpart of ``mlamg_tpu/native/__init__.py``; only ``rcm_ordering``
-is on the port's path so far).
+(counterpart of ``mlamg_tpu/native/__init__.py``; ``rcm_ordering``,
+``count_diagonals`` and ``csr_to_dia`` are on the port's paths so far).
 
 The library is compiled from the repository's source at first use by
 ``g++ -O3 -fPIC -shared`` into ``mlamg_torch/_build/`` (no
 ``-march=native``, and never a library built on another host; see
 ``ops/_build.py``).  Without a compiler or the source, ``rcm_ordering``
 falls back to scipy exactly as the JAX package does, so both packages give
-the same permutation on the same machine.
+the same permutation on the same machine; the DIA extraction falls back to
+numpy (:func:`csr_to_dia_numpy`), which gives the same offsets and data.
 """
 
 from __future__ import annotations
@@ -45,8 +46,14 @@ def _load():
         return None
     p_i64 = np.ctypeslib.ndpointer(np.int64, flags="C")
     p_i32 = np.ctypeslib.ndpointer(np.int32, flags="C")
+    p_f32 = np.ctypeslib.ndpointer(np.float32, flags="C")
+    i64 = ctypes.c_int64
     lib.rcm_ordering.restype = None
-    lib.rcm_ordering.argtypes = [ctypes.c_int64, p_i64, p_i32, p_i32]
+    lib.rcm_ordering.argtypes = [i64, p_i64, p_i32, p_i32]
+    lib.count_diagonals.restype = i64
+    lib.count_diagonals.argtypes = [i64, p_i64, p_i32]
+    lib.csr_to_dia.restype = i64
+    lib.csr_to_dia.argtypes = [i64, p_i64, p_i32, p_f32, p_i64, p_f32]
     _LIB = lib
     return _LIB
 
@@ -75,3 +82,58 @@ def rcm_ordering(A) -> np.ndarray:
     return np.asarray(
         csgraph.reverse_cuthill_mckee(A, symmetric_mode=True), np.int32
     )
+
+
+def _csr_parts(A):
+    """(indptr i64, indices i32, data f32, n) of ``A`` with sorted indices."""
+    import scipy.sparse as sp
+
+    A = sp.csr_matrix(A)
+    A.sort_indices()
+    return (
+        np.ascontiguousarray(A.indptr, np.int64),
+        np.ascontiguousarray(A.indices, np.int32),
+        np.ascontiguousarray(A.data, np.float32),
+        A.shape[0],
+    )
+
+
+def count_diagonals(A) -> int:
+    """Number of distinct stored diagonals (offsets col - row) of ``A``."""
+    lib = _load()
+    if lib is not None:
+        indptr, indices, _, n = _csr_parts(A)
+        return int(lib.count_diagonals(n, indptr, indices))
+    import scipy.sparse as sp
+
+    coo = sp.csr_matrix(A).tocoo()
+    return len(np.unique(coo.col - coo.row))
+
+
+def csr_to_dia_numpy(A, dtype=np.float32):
+    """(offsets (D,) i64 sorted, data (D, n) ``dtype``) with
+    ``data[d, i] = A[i, i + offsets[d]]`` and zeros elsewhere: one
+    ``np.searchsorted`` over the sorted distinct offsets, no per-entry
+    Python work."""
+    import scipy.sparse as sp
+
+    coo = sp.csr_matrix(A).tocoo()
+    diff = coo.col.astype(np.int64) - coo.row.astype(np.int64)
+    offsets = np.unique(diff)
+    data = np.zeros((len(offsets), A.shape[0]), dtype)
+    data[np.searchsorted(offsets, diff), coo.row] = coo.data
+    return offsets, data
+
+
+def csr_to_dia(A):
+    """(offsets (D,) i64 sorted, data (D, n) f32) of a square matrix: the
+    C++ extraction, or :func:`csr_to_dia_numpy` where it is not built."""
+    lib = _load()
+    if lib is None:
+        return csr_to_dia_numpy(A, np.float32)
+    indptr, indices, data, n = _csr_parts(A)
+    cap = int(lib.count_diagonals(n, indptr, indices))
+    offsets = np.empty(cap, np.int64)
+    out = np.empty((cap, n), np.float32)
+    d = int(lib.csr_to_dia(n, indptr, indices, data, offsets, out.reshape(-1)))
+    return offsets[:d], out[:d]

@@ -23,13 +23,14 @@ import os
 import platform
 import shutil
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 
 # kernel name -> source file in csrc/
-KERNEL_SOURCES = {"well_spmv": "well_spmv.cu"}
+KERNEL_SOURCES = {"well_spmv": "well_spmv.cu", "dia_spmv": "dia_spmv.cu"}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -101,11 +102,12 @@ def _kernel_job(name: str):
 
 def build_kernels(names=None) -> dict[str, Path]:
     """Compile the named CUDA kernels (default: all), one ``nvcc`` per
-    source.  Returns name -> library path."""
+    source, all started together.  Returns name -> library path."""
     names = list(KERNEL_SOURCES) if names is None else list(names)
     jobs = {name: _kernel_job(name) for name in names}
-    for job in jobs.values():
-        compile_library(*job)
+    with ThreadPoolExecutor(max_workers=max(len(jobs), 1)) as pool:
+        for f in [pool.submit(compile_library, *job) for job in jobs.values()]:
+            f.result()
     return {name: job[2] for name, job in jobs.items()}
 
 

@@ -1,6 +1,6 @@
 """The port's kernel plumbing: the native build helper, the ``well_spmv``
-wrapper's dispatch, and (on the card) the CUDA kernel against its plain
-version.
+wrapper's dispatch, and (on the card) the CUDA kernels ``well_spmv`` and
+``dia_spmv`` against their plain versions.
 
 This file imports neither JAX nor ``mlamg_tpu``, so where JAX is not
 installed it runs without the suite's conftest (which imports JAX):
@@ -19,6 +19,7 @@ import torch
 from mlamg_torch import native
 from mlamg_torch.data import Grid
 from mlamg_torch.ops import _build
+from mlamg_torch.ops.dia import DIA, DIA_MAX_D, dia_spmv, dia_spmv_reference
 from mlamg_torch.ops.unstructured import (
     LAUNCHES, WindowedELL, well_spmv, well_spmv_reference,
 )
@@ -113,3 +114,46 @@ def test_well_spmv_cuda_kernel_matches_plain_version(rng):
                              (x, c.double())):
             with pytest.raises(ValueError):
                 well_spmv(W, bad_x, bad_c)
+
+
+def test_kernel_sources_are_registered():
+    assert _build.KERNEL_SOURCES == {"well_spmv": "well_spmv.cu", "dia_spmv": "dia_spmv.cu"}
+    for src in _build.KERNEL_SOURCES.values():
+        assert (_build.CSRC / src).is_file()
+    text = (_build.CSRC / "dia_spmv.cu").read_text()
+    assert f"#define DIA_MAX_D {DIA_MAX_D}" in text and DIA_MAX_D >= 64
+
+
+@pytest.mark.cuda
+def test_dia_spmv_cuda_kernel_matches_plain_version(rng):
+    """On the card: the hand-written DIA kernel against its plain version,
+    plain and affine, the launch counter, and the wrapper's input checks."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    n_ragged = 128 * 64 + 37  # no multiple-of-128 requirement
+    offsets = [-130, -128, -1, 0, 1, 127, 256]
+    banded_dia = sp.diags([rng.randn(n_ragged - abs(o)) for o in offsets], offsets,
+                          shape=(n_ragged, n_ragged)).tocsr().astype(np.float32)
+    Tx = sp.diags([-1.0, 2.0, -1.0], [-1, 0, 1], shape=(64, 64))
+    poisson = (sp.kron(sp.eye(64), Tx) + sp.kron(Tx, sp.eye(64))).tocsr().astype(np.float32)
+    for A in (poisson, banded_dia):
+        Ad = DIA.from_scipy(A, device="cuda")
+        n = A.shape[0]
+        x = torch.from_numpy(rng.randn(n).astype(np.float32)).cuda()
+        c = torch.from_numpy(rng.randn(n).astype(np.float32)).cuda()
+        for cc, alpha in ((None, 1.0), (c, -1.0)):
+            before = LAUNCHES["dia_spmv"]
+            y = dia_spmv(Ad, x, cc, alpha)
+            torch.cuda.synchronize()
+            assert LAUNCHES["dia_spmv"] == before + 1
+            ref = dia_spmv_reference(Ad, x, cc, alpha)
+            assert float((y - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+        strided = torch.stack([x, x], 1)[:, 0]
+        for bad_x, bad_c in ((x.double(), None), (x[:-1], None), (strided, None),
+                             (x, c.double()), (x.cpu(), None)):
+            with pytest.raises(ValueError):
+                dia_spmv(Ad, bad_x, bad_c)
+        too_many = DIA(torch.zeros((DIA_MAX_D + 1, n), device="cuda"),
+                       tuple(range(DIA_MAX_D + 1)), (n, n))
+        with pytest.raises(ValueError, match="at most"):
+            dia_spmv(too_many, x)

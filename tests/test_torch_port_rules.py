@@ -77,6 +77,27 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
     assert h.levels[0].Dinv.device.type == "cpu" and sorted(perm) == list(range(50))
 
 
+def test_structured_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
+    from mlamg_torch.convert import hierarchy_from_numpy
+    from mlamg_torch.mg.structured import build_structured_hierarchy
+    from mlamg_torch.ops.dia import DIA
+
+    T = sp.diags([-1.0, 2.0, -1.0], [-1, 0, 1], shape=(16, 16))
+    A = (sp.kron(sp.eye(16), T) + sp.kron(T, sp.eye(16))).tocsr()
+    lev = {"data": np.ones((1, 4)), "offsets": (0,), "shape": (4, 4)}
+    coarse = {"lu": np.eye(2), "piv": np.zeros(0), "singular": False, "method": "inverse"}
+    for call in (lambda: DIA.from_scipy(A),
+                 lambda: build_structured_hierarchy(DIA.from_scipy(A), 16, 16,
+                                                    sides=(2,), min_coarse=4, kind="bilinear"),
+                 lambda: hierarchy_from_numpy([lev], [{"ny": 2, "nx": 2}], [np.ones(4)],
+                                              [1.0], coarse)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    h = build_structured_hierarchy(DIA.from_scipy(A, device="cpu"), 16, 16,
+                                   sides=(2,), min_coarse=4, kind="bilinear")
+    assert h.As[0].device.type == "cpu" and h.coarse.lu.shape == (64, 64)
+
+
 def run_smoke(cwd: Path):
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
     return subprocess.run(
@@ -115,3 +136,44 @@ def test_launches_per_cycle_counts_the_w_cycle():
     assert chip_smoke.launches_per_cycle(H(), nu=4, gamma=2) == 13 * 15 == 195
     assert chip_smoke.launches_per_cycle(H(), nu=4, gamma=1) == 13 * 4
     assert np.isclose(chip_smoke.HBM_BYTES_PER_S, 3.35e12)
+
+
+def test_structured_launch_counts_follow_the_hierarchy(monkeypatch):
+    """chip_smoke's derived dia_spmv counts equal the SpMVs the structured
+    path makes (counted here through the plain version on the CPU)."""
+    from collections import Counter
+
+    from mlamg_torch.mg.cycle import vcycle
+    from mlamg_torch.mg.factored import BoxAgg2D, factored_sa
+    from mlamg_torch.mg.structured import build_structured_hierarchy
+    from mlamg_torch.ops import dia
+
+    sys.path.insert(0, str(REPO))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(REPO))
+
+    calls = Counter()
+    plain = dia.dia_spmv_reference
+
+    def counted(*args, **kw):
+        calls["spmv"] += 1
+        return plain(*args, **kw)
+
+    monkeypatch.setattr(dia, "dia_spmv_reference", counted)
+    T = sp.diags([-1.0, 2.0, -1.0], [-1, 0, 1], shape=(64, 64))
+    A = (sp.kron(sp.eye(64), T) + sp.kron(T, sp.eye(64))).tocsr()
+    Ad = dia.DIA.from_scipy(A, device="cpu")
+    for kw in (dict(sides=(2,) * 6, min_coarse=16, kind="bilinear"),
+               dict(sides=(4, 2), min_coarse=8, smooth_steps=(2, 1), kind="sa")):
+        calls.clear()
+        h = build_structured_hierarchy(Ad, 64, 64, **kw)
+        assert calls["spmv"] == chip_smoke.probe_launches(h) > 0
+        calls.clear()
+        x = torch.ones(64 * 64)
+        vcycle(h, torch.zeros_like(x), x, nu=2, smoother="chebyshev")
+        assert calls["spmv"] == chip_smoke.vcycle_launches(h, nu=2)
+    # bilinear: 3 levels of 7; the SA levels add 2 per smoothing factor
+    assert chip_smoke.vcycle_launches(h, nu=2) == (7 + 4) + (7 + 2)
+    assert factored_sa(Ad, BoxAgg2D(64, 64, 4, 4), omega=0.6).smooth_steps == 1
