@@ -8,11 +8,16 @@ Phases (each prints one JSON line; any failure exits non-zero):
 1. device: the card's name and power limit from nvidia-smi.
 2. kernels: build every CUDA kernel from ``mlamg_torch/ops/csrc`` with nvcc
    (one process per source, all started together), then hold ``well_spmv``
-   against its plain PyTorch version
-   (``well_spmv_reference``) to 1e-5 * max|y|, plain and affine
-   (alpha=-1, c), on the RCM-ordered random-hull FEM matrix and on a small
-   banded matrix with uneven row degrees; time kernel, plain version and
-   the torch.sparse CSR matvec with CUDA events.
+   at every LANES, plain and affine (alpha=-1, c), against its plain
+   version on the sliced pack (``sliced_spmv_reference``, bit for bit) and
+   against the plain version on the ELL arrays (``well_spmv_reference``,
+   to 1e-5 * max|y|): on the RCM-ordered random-hull FEM matrix, and at
+   sigma 1 and 256 on a banded matrix with uneven row degrees, one with
+   empty rows and one with n = 32k + 5.  Time kernel and the torch.sparse
+   CSR matvec with CUDA events, L2-cold (a 256 MB buffer written and read
+   back between launches, each launch between its own events, median of
+   20) and warm (100 back to back), queued behind a spin kernel so that
+   host time does not count; and the plain versions over 50 warmed calls.
 3. path: the unstructured multilevel SA-AMG solve, as bench.py drives the
    JAX package: ``build_unstructured_hierarchy(alpha=0.2, max_levels=5,
    min_coarse=1200, lloyd_maxiter=5, fmt="well")`` on the 600k-dof hull
@@ -25,7 +30,12 @@ Phases (each prints one JSON line; any failure exits non-zero):
    float64 scipy), and that a small hierarchy's cycle on the card matches
    the same cycle on the CPU.  Times a W-cycle with CUDA events and reads
    a torch.profiler trace of three W-cycles for the device's busy time and
-   idle share.
+   idle share.  Then, per level: n, nnz, pack slots, LANES, the kernel's
+   cold and warm time against its nonzero bound, and launches per W-cycle,
+   with the sum of launches x warm time beside the trace's ``well_spmv``
+   time, and the fine level's bandwidth and gather spans; and the sweeps
+   behind the kernel's choices: every LANES at every level, sigma 1
+   against 256 at levels 0-1.
 4. dia_kernel: hold ``dia_spmv`` against ``dia_spmv_reference`` (plain and
    affine, 1e-5 * max|y|) on the 4096^2 five-point Poisson and on a
    random banded matrix with n = 128*64 + 37; time kernel, plain version
@@ -50,13 +60,15 @@ Phases (each prints one JSON line; any failure exits non-zero):
 Then one line ``{"kernels": [...]}`` with each kernel's launches on its
 main path, its largest error against the plain version over every check,
 its time, the plain version's and the library call's time, and its bound
-(``well_spmv``: from the stored nonzeros, ``bound_ell_ms`` adds the ELL
-padding slots; ``dia_spmv``: (D + 2) * 4 B per row); the nvidia-smi line;
+(``well_spmv``: from the stored nonzeros, ``bound_ell_ms`` counts the ELL
+slots and ``bound_sliced_ms`` the pack's; ``dia_spmv``: (D + 2) * 4 B per
+row); the nvidia-smi line;
 and last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import tempfile
@@ -73,6 +85,11 @@ REF_CONV = 0.4811  # JAX package, same configuration (BENCH_r05.json)
 CONV_TOL = 0.03
 MAX_CYCLES = 20
 KERNEL_RTOL = 1e-5
+FLUSH_BYTES = 256 << 20  # written between L2-cold launches: over 5x the 50 MB L2
+SPIN_CYCLES = 20_000_000  # ~10 ms spin that timed launches queue behind
+COLD_ITERS, WARM_ITERS = 20, 100
+HEAT_FLUSHES = 50  # ~10 ms of buffer writes before a cold timing
+WCYCLE = dict(nu=4, lmin_frac=1 / 15, gamma=2)  # bench.py hull600k: W(4,4) Chebyshev
 GRID = 4096  # structured path: GRID^2 five-point Poisson (bench.py bench_vcycle_16m)
 REF_CONV_16M = 0.1393  # JAX package, same configuration (BENCH_r05.json)
 VCYCLE = dict(nu=2, smoother="chebyshev")
@@ -112,32 +129,35 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def kernel_error(W, x, c, alpha):
-    """(max |kernel - plain|, max |plain|) of one call."""
-    import torch
-    from mlamg_torch.ops.unstructured import well_spmv, well_spmv_reference
-
-    y = well_spmv(W, x, c, alpha)
-    torch.cuda.synchronize()
-    ref = well_spmv_reference(W, x, c, alpha)
-    check(bool(torch.isfinite(y).all()), "well_spmv returned non-finite values")
-    return float((y - ref).abs().max()), float(ref.abs().max())
-
-
 def check_kernel(W, rng, label: str) -> tuple[float, float]:
-    """Hold well_spmv against its plain version, plain and affine.
-    Returns the largest (absolute, relative) error of the two calls."""
+    """Hold well_spmv against its plain versions at every LANES, plain and
+    affine: equal to ``sliced_spmv_reference`` (the kernel's arithmetic on
+    the pack) bit for bit, and within 1e-5 * max|y| of
+    ``well_spmv_reference`` (the ELL arrays).  Returns the largest
+    (absolute, relative) error against the latter."""
     import torch
+    from mlamg_torch.ops.unstructured import (
+        LANES, sliced_spmv_reference, well_spmv, well_spmv_reference,
+    )
 
     n = W.shape[0]
     x = torch.from_numpy(rng.randn(n).astype(np.float32)).to(W.device)
     c = torch.from_numpy(rng.randn(n).astype(np.float32)).to(W.device)
     abs_err = rel_err = 0.0
     for form, cc, alpha in (("plain", None, 1.0), ("affine", c, -1.0)):
-        err, scale = kernel_error(W, x, cc, alpha)
-        check(err <= KERNEL_RTOL * scale,
-              f"well_spmv {form} on {label}: max err {err} > {KERNEL_RTOL} * {scale}")
-        abs_err, rel_err = max(abs_err, err), max(rel_err, err / scale)
+        ref = well_spmv_reference(W, x, cc, alpha)
+        scale = float(ref.abs().max())
+        for lanes in LANES:
+            Wl = dataclasses.replace(W, lanes=lanes)
+            y = well_spmv(Wl, x, cc, alpha)
+            torch.cuda.synchronize()
+            what = f"well_spmv {form} on {label}, lanes {lanes}"
+            check(bool(torch.isfinite(y).all()), f"{what}: non-finite values")
+            check(torch.equal(y, sliced_spmv_reference(Wl, x, cc, alpha)),
+                  f"{what}: differs from sliced_spmv_reference")
+            err = float((y - ref).abs().max())
+            check(err <= KERNEL_RTOL * scale, f"{what}: max err {err} > {KERNEL_RTOL} * {scale}")
+            abs_err, rel_err = max(abs_err, err), max(rel_err, err / scale)
     return abs_err, rel_err
 
 
@@ -154,18 +174,116 @@ def banded_matrix(rng, n: int = 700, band: int = 60):
     ).astype(np.float32)
 
 
-def kernel_phase(Ap, rng) -> dict:
-    """Check well_spmv and time it (plain form, L2-cold operator: its 8 B
-    per slot exceed the 50 MB L2 at the main path's fine level)."""
+def empty_rows_matrix(rng, n: int = 1000):
+    """Banded matrix whose first 64 rows (two whole slices) and every 7th
+    row are empty."""
+    import scipy.sparse as sp
+
+    A = banded_matrix(rng, n).tolil()
+    for r in [*range(64), *range(64, n, 7)]:
+        A.rows[r], A.data[r] = [], []
+    return sp.csr_matrix(A)
+
+
+def kernel_matrices(rng) -> dict:
+    """The small matrices every kernel check runs on besides the hull."""
+    return {"banded": banded_matrix(rng), "empty rows": empty_rows_matrix(rng),
+            "n = 32k + 5": banded_matrix(rng, n=32 * 40 + 5, band=90)}
+
+
+def ell_to_scipy(W):
+    """The scipy matrix of a WindowedELL's ELL arrays."""
+    import scipy.sparse as sp
+
+    n = W.shape[0]
+    data, col = W.data[:, :n].cpu().numpy(), W.col[:, :n].cpu().numpy()
+    rows = np.broadcast_to(np.arange(n), col.shape)
+    A = sp.csr_matrix((data.ravel(), (rows.ravel(), col.ravel())), shape=W.shape)
+    A.sum_duplicates()
+    A.eliminate_zeros()  # the padding slots' zeros, summed into column `first`
+    check(A.nnz == W.nnz, f"ELL arrays unpack to {A.nnz} nonzeros, not {W.nnz}")
+    return A
+
+
+def queued_ms(fn, iters: int, flush=None) -> float:
+    """Device time of one ``fn()`` in ms.  The calls queue behind a spin
+    kernel, so the host's time between launches does not count.  Without
+    ``flush``: the mean over ``iters`` calls back to back (warm).  With it
+    (cold): before each call the buffer is written, which evicts L2, then
+    read, so that L2 holds clean lines and the call does not pay to write
+    the buffer's dirty lines back; each call sits between its own pair of
+    events, and the median over ``iters`` calls is returned.  Writing the
+    buffer HEAT_FLUSHES times first brings the card's clocks up after the
+    host's work."""
     import torch
-    from mlamg_torch.ops.unstructured import WindowedELL, well_spmv, well_spmv_reference
+
+    fn()
+    if flush is not None:
+        for _ in range(HEAT_FLUSHES):
+            flush.fill_(0.0)
+            flush.sum()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SPIN_CYCLES)
+    if flush is None:
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        stop.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(stop) / iters
+    pairs = []
+    for i in range(iters):
+        flush.fill_(float(i))
+        flush.sum()
+        pair = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        pair[0].record()
+        fn()
+        pair[1].record()
+        pairs.append(pair)
+    torch.cuda.synchronize()
+    return float(np.median([a.elapsed_time(b) for a, b in pairs]))
+
+
+def cold_warm_ms(fn, flush) -> tuple[float, float]:
+    return queued_ms(fn, COLD_ITERS, flush), queued_ms(fn, WARM_ITERS)
+
+
+def spmv_bound_ms(W, slots: int, index_bytes: int = 0) -> float:
+    """Least time of y = A x on this card when it streams ``slots`` value
+    and column pairs (8 B each) and ``index_bytes`` more, reads x and
+    writes y: the bytes over the HBM rate (the flops are far below the
+    compute bound).  ``slots`` is W.nnz for the nonzero bound."""
+    return (slots * 8 + index_bytes + 2 * W.shape[0] * 4) / HBM_BYTES_PER_S * 1e3
+
+
+def kernel_times_us(W, flush) -> dict:
+    """well_spmv's L2-cold and warm time on W, in us."""
+    import torch
+    from mlamg_torch.ops.unstructured import well_spmv
+
+    x = torch.randn(W.shape[0], device=W.device)
+    cold, warm = cold_warm_ms(lambda: well_spmv(W, x), flush)
+    return {"cold_us": cold * 1e3, "warm_us": warm * 1e3}
+
+
+def kernel_phase(Ap, rng, flush) -> dict:
+    """Check well_spmv and time it at the main path's fine level.  ``ms``
+    is the L2-cold time (the pack, 35.5 MB, fits in the 50 MB L2, so
+    back-to-back launches would be partly warm); ``warm_ms`` the
+    back-to-back time."""
+    import torch
+    from mlamg_torch.ops.unstructured import (
+        WindowedELL, sliced_spmv_reference, well_spmv, well_spmv_reference,
+    )
 
     W = WindowedELL.from_scipy(Ap, device="cuda")
-    errs = [check_kernel(W, rng, "hull"),
-            check_kernel(WindowedELL.from_scipy(banded_matrix(rng), device="cuda"),
-                         rng, "banded")]
+    errs = [check_kernel(W, rng, "hull")]
+    errs += [check_kernel(WindowedELL.from_scipy(M, device="cuda", sigma=sigma), rng,
+                          f"{label}, sigma {sigma}")
+             for label, M in kernel_matrices(rng).items() for sigma in (1, W.sigma)]
 
-    n, w, n_pad = W.shape[0], W.width, W.n_pad
+    n = W.shape[0]
     x = torch.from_numpy(rng.randn(n).astype(np.float32)).cuda()
     c = torch.from_numpy(rng.randn(n).astype(np.float32)).cuda()
     A_csr = torch.sparse_csr_tensor(
@@ -179,19 +297,14 @@ def kernel_phase(Ap, rng) -> dict:
     check(float((y_lib - y_ref).abs().max()) <= KERNEL_RTOL * float(y_ref.abs().max()),
           "torch.sparse CSR matvec disagrees with the plain version")
 
-    ms = cuda_ms(lambda: well_spmv(W, x))
+    ms, warm_ms = cold_warm_ms(lambda: well_spmv(W, x), flush)
+    library_ms, library_warm_ms = cold_warm_ms(lambda: torch.mv(A_csr, x), flush)
+    affine_ms = queued_ms(lambda: well_spmv(W, x, c, -1.0), COLD_ITERS, flush)
+    # the plain versions: 50 warmed calls back to back
     plain_ms = cuda_ms(lambda: well_spmv_reference(W, x))
-    library_ms = cuda_ms(lambda: torch.mv(A_csr, x))
-    affine_ms = cuda_ms(lambda: well_spmv(W, x, c, -1.0))
     affine_plain_ms = cuda_ms(lambda: well_spmv_reference(W, x, c, -1.0))
-    # least bytes of the function: each stored nonzero (value and column)
-    # read once, x read, y written (c read in the affine form).  The ELL
-    # layout also moves its padding slots: bound_ell_ms counts w * n_pad.
+    sliced_plain_ms = cuda_ms(lambda: sliced_spmv_reference(W, x))
     nnz = int(Ap.nnz)
-    bound_ms = max((nnz * 8 + 2 * n * 4) / HBM_BYTES_PER_S,
-                   2 * nnz / F32_FLOPS) * 1e3
-    bound_ell_ms = max((w * n_pad * 8 + 2 * n * 4) / HBM_BYTES_PER_S,
-                       2 * w * n_pad / F32_FLOPS) * 1e3
     affine_bound_ms = max((nnz * 8 + 3 * n * 4) / HBM_BYTES_PER_S,
                           (2 * nnz + 2 * n) / F32_FLOPS) * 1e3
     return {
@@ -203,28 +316,96 @@ def kernel_phase(Ap, rng) -> dict:
         "max_rel_err": max(e[1] for e in errs),
         "ms": ms,
         "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
+        "bound_ms": max(spmv_bound_ms(W, nnz), 2 * nnz / F32_FLOPS * 1e3),
         "bound_by": "bytes",
         "library_ms": library_ms,
-        "bound_ell_ms": bound_ell_ms,
+        "warm_ms": warm_ms,
+        "library_warm_ms": library_warm_ms,
+        "sliced_plain_ms": sliced_plain_ms,
+        "bound_ell_ms": spmv_bound_ms(W, W.width * W.n_pad),
+        # the pack's slots, plus row_perm, slice_ptr and slice_w
+        "bound_sliced_ms": spmv_bound_ms(W, W.slots, (W.row_perm.numel() + 2 * W.n_slices) * 4),
         "affine_ms": affine_ms,
         "affine_plain_ms": affine_plain_ms,
         "affine_bound_ms": affine_bound_ms,
+        "sigma": W.sigma,
+        "lanes": W.lanes,
         "n": n,
         "nnz": nnz,
-        "w": w,
-        "n_pad": n_pad,
+        "w": W.width,
+        "n_pad": W.n_pad,
+        "slots": W.slots,
     }
 
 
+def level_table(h, flush, cycle: dict = WCYCLE) -> list:
+    """Per level of the hierarchy: size, the kernel's L2-cold and warm
+    time in us, its nonzero bound, and launches per cycle (one visit's
+    SpMVs times the visits)."""
+    return [{"level": l, "n": lev.A.shape[0], "nnz": lev.A.nnz,
+             "ell_slots": lev.A.width * lev.A.n_pad, "slots": lev.A.slots,
+             "lanes": lev.A.lanes, **kernel_times_us(lev.A, flush),
+             "bound_us": spmv_bound_ms(lev.A, lev.A.nnz) * 1e3,
+             "launches_per_cycle": launches}
+            for l, (lev, launches) in enumerate(zip(h.levels, level_launches(h, **cycle)))]
+
+
+def gather_spans(W, sizes=(32, 256)) -> dict:
+    """Why the kernel stages no window of x in shared memory (host
+    numbers): the bandwidth of an operator without empty rows, and the
+    column span (max - min + 1) that each block of ``size`` consecutive
+    rows gathers from: mean, 95th percentile and max."""
+    A = ell_to_scipy(W)
+    A.sort_indices()
+    n = A.shape[0]
+    rows = np.arange(n)
+    lo, hi = A.indices[A.indptr[:-1]], A.indices[A.indptr[1:] - 1]
+    out = {"bandwidth": int(np.maximum(hi - rows, rows - lo).max())}
+    for size in sizes:
+        m = -(-n // size) * size
+        lo_p, hi_p = np.full(m, n), np.full(m, -1)
+        lo_p[:n], hi_p[:n] = lo, hi
+        span = hi_p.reshape(-1, size).max(1) - lo_p.reshape(-1, size).min(1) + 1
+        out[f"span_{size}"] = {"mean": float(span.mean()),
+                               "p95": float(np.percentile(span, 95)), "max": int(span.max())}
+    return out
+
+
+def sweep_phase(h, flush) -> dict:
+    """The kernel's design choices, timed on the hierarchy's operators:
+    every LANES at every level; sigma = 1 against the default at levels 0
+    and 1."""
+    from mlamg_torch.ops.unstructured import LANES, WindowedELL
+
+    times = partial(kernel_times_us, flush=flush)
+    out = {"lanes": [], "sigma": []}
+    for l, lev in enumerate(h.levels):
+        W = lev.A
+        by_lanes = {L: times(dataclasses.replace(W, lanes=L)) for L in LANES}
+        best = min(by_lanes, key=lambda L: by_lanes[L]["cold_us"])
+        out["lanes"].append({"level": l, "rule": W.lanes, "fastest": best,
+                             "rule_over_fastest": by_lanes[W.lanes]["cold_us"]
+                             / by_lanes[best]["cold_us"],
+                             **{str(L): t for L, t in by_lanes.items()}})
+        if l < 2:
+            W1 = dataclasses.replace(WindowedELL.from_scipy(ell_to_scipy(W), device="cuda",
+                                                            sigma=1), lanes=W.lanes)
+            out["sigma"].append({"level": l, "slots": {"1": W1.slots, str(W.sigma): W.slots},
+                                 "1": times(W1), str(W.sigma): times(W)})
+    return out
+
+
+def level_launches(h, nu: int, gamma: int, **_) -> list:
+    """well_spmv launches of one uvcycle per level: per level visit
+    2*(nu+1) Chebyshev residuals, one residual, and one SpMV per omega each
+    in restriction and interpolation; level l is visited gamma**l times."""
+    return [gamma ** l * (2 * (nu + 1) + 1 + 2 * len(lev.omegas))
+            for l, lev in enumerate(h.levels)]
+
+
 def launches_per_cycle(h, nu: int, gamma: int) -> int:
-    """well_spmv launches of one uvcycle: per level visit 2*(nu+1)
-    Chebyshev residuals, one residual, and one SpMV per omega each in
-    restriction and interpolation; level l is visited gamma**l times."""
-    return sum(
-        gamma ** l * (2 * (nu + 1) + 1 + 2 * len(lev.omegas))
-        for l, lev in enumerate(h.levels)
-    )
+    """well_spmv launches of one uvcycle (see level_launches)."""
+    return sum(level_launches(h, nu, gamma))
 
 
 def device_trace(fn, iters: int, kernel: str = "well_spmv") -> dict:
@@ -274,7 +455,7 @@ def device_trace(fn, iters: int, kernel: str = "well_spmv") -> dict:
     }
 
 
-def path_phase(A, rng) -> tuple[dict, int, list]:
+def path_phase(A, rng) -> tuple[dict, int, list, object]:
     import torch
     from mlamg_torch.mg.amg_unstructured import (
         build_unstructured_hierarchy, uvcycle, uvcycle_solve,
@@ -283,7 +464,7 @@ def path_phase(A, rng) -> tuple[dict, int, list]:
 
     dev = "cuda"
     n = A.shape[0]
-    cycle = dict(nu=4, lmin_frac=1 / 15, gamma=2)
+    cycle = WCYCLE
     prof: dict = {}
 
     # --- the main path: counts set to 0 just before, read just after ---
@@ -362,7 +543,7 @@ def path_phase(A, rng) -> tuple[dict, int, list]:
         "level_kernel_rel_err": [e[1] for e in level_errs],
         "rhs_iters": iters_rhs,
         "rhs_rel_residual": rel_res,
-    }, launches, level_errs
+    }, launches, level_errs, h
 
 
 def small_cycle_phase() -> dict:
@@ -741,10 +922,19 @@ def main() -> None:
           "seconds": time.time() - t0, "native_rcm": native.available()})
 
     rng = np.random.RandomState(0)
-    kernel = kernel_phase(Ap, rng)
-    emit({"phase": "kernels", **{k: kernel[k] for k in ("max_rel_err", "ms")}})
-    path, launches, level_errs = path_phase(A, rng)
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
+    kernel = kernel_phase(Ap, rng, flush)
+    emit({"phase": "kernels", **{k: kernel[k] for k in ("max_rel_err", "ms", "warm_ms")}})
+    path, launches, level_errs, h = path_phase(A, rng)
     emit(path)
+    levels = level_table(h, flush)
+    emit({"phase": "levels", "levels": levels,
+          "launches_x_warm_ms_per_wcycle": sum(r["launches_per_cycle"] * r["warm_us"]
+                                               for r in levels) / 1e3,
+          "trace_well_spmv_ms_per_wcycle": path["wcycle_trace"]["well_spmv_ms"],
+          "fine_level_gather_spans": gather_spans(h.levels[0].A)})
+    emit({"phase": "sweeps", **sweep_phase(h, flush)})
+    del h, flush
     emit(small_cycle_phase())
     kernel["launches"] = launches
     kernel["max_abs_err"] = max(kernel["max_abs_err"], *(e[0] for e in level_errs))

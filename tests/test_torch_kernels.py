@@ -9,6 +9,7 @@ installed it runs without the suite's conftest (which imports JAX):
 """
 
 import ctypes
+import dataclasses
 import shutil
 
 import numpy as np
@@ -21,7 +22,7 @@ from mlamg_torch.data import Grid
 from mlamg_torch.ops import _build
 from mlamg_torch.ops.dia import DIA, DIA_MAX_D, dia_spmv, dia_spmv_reference
 from mlamg_torch.ops.unstructured import (
-    LAUNCHES, WindowedELL, well_spmv, well_spmv_reference,
+    LANES, LAUNCHES, WindowedELL, sliced_spmv_reference, well_spmv, well_spmv_reference,
 )
 
 
@@ -91,29 +92,46 @@ def test_well_spmv_dispatch_by_device(rng):
         well_spmv(W, x.to("meta"))
 
 
+def empty_rows(rng, n=1000):
+    """Banded matrix whose first 64 rows (two whole slices) and every 7th
+    row are empty."""
+    A = banded(rng, n).tolil()
+    for r in [*range(64), *range(64, n, 7)]:
+        A.rows[r], A.data[r] = [], []
+    return sp.csr_matrix(A)
+
+
 @pytest.mark.cuda
 def test_well_spmv_cuda_kernel_matches_plain_version(rng):
-    """On the card: the hand-written kernel against its plain version,
-    plain and affine, and the wrapper's input checks."""
+    """On the card: the hand-written kernel at every LANES and sigma 1 and
+    256 against its plain versions (bit for bit on the sliced pack, 1e-5
+    relative on the ELL arrays), plain and affine; the launch counter; and
+    the wrapper's input checks."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
-    for A in (hull(), banded(rng)):
-        W = WindowedELL.from_scipy(A, device="cuda")
+    for A in (hull(), banded(rng), empty_rows(rng), banded(rng, n=32 * 40 + 5)):
         n = A.shape[0]
         x = torch.from_numpy(rng.randn(n).astype(np.float32)).cuda()
         c = torch.from_numpy(rng.randn(n).astype(np.float32)).cuda()
-        for cc, alpha in ((None, 1.0), (c, -1.0)):
-            before = LAUNCHES["well_spmv"]
-            y = well_spmv(W, x, cc, alpha)
-            torch.cuda.synchronize()
-            assert LAUNCHES["well_spmv"] == before + 1
-            ref = well_spmv_reference(W, x, cc, alpha)
-            assert float((y - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+        for sigma in (1, 256):
+            W = WindowedELL.from_scipy(A, device="cuda", sigma=sigma)
+            for lanes in LANES:
+                Wl = dataclasses.replace(W, lanes=lanes)
+                for cc, alpha in ((None, 1.0), (c, -1.0)):
+                    before = LAUNCHES["well_spmv"]
+                    y = well_spmv(Wl, x, cc, alpha)
+                    torch.cuda.synchronize()
+                    assert LAUNCHES["well_spmv"] == before + 1
+                    assert torch.equal(y, sliced_spmv_reference(Wl, x, cc, alpha))
+                    ref = well_spmv_reference(W, x, cc, alpha)
+                    assert float((y - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
         strided = torch.stack([x, x], 1)[:, 0]
         for bad_x, bad_c in ((x.double(), None), (x[:-1], None), (strided, None),
                              (x, c.double())):
             with pytest.raises(ValueError):
                 well_spmv(W, bad_x, bad_c)
+        with pytest.raises(ValueError, match="lanes"):
+            well_spmv(dataclasses.replace(W, lanes=3), x)
 
 
 def test_kernel_sources_are_registered():
