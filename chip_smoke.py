@@ -56,13 +56,26 @@ Phases (each prints one JSON line; any failure exits non-zero):
    unfused; checks the kernel on the S and S^T factors and the launches.
 7. small_structured: one 64^2 bilinear V-cycle and one 64^2 box-SA fused
    two-level iteration on the card against the same on the CPU.
+8. eval: the learned two-level evaluation through the port's CLI functions
+   (``mlamg_torch.cli.evaluate_dataset``: ``load_model``, ``evaluate``) on
+   the card in float32 with the ablations, on ``data_out/2d_iso/test``
+   (``runs_iso_r5``) and ``data_out/2d_aniso/test`` (``runs_aniso_r5_c``).
+   Checks every method's mean against the committed JSON of the JAX CLI
+   (within 0.01), ML below Lloyd on 2d_iso, a second 2d_iso run on the card
+   equal per grid, and the same evaluation on the CPU within 0.02 per grid
+   (and counts the grids whose FullAggNet centers or agg_id differ between
+   card and CPU).  Neither CUDA kernel is on this path: it checks that
+   both launch 0 times.  Prints seconds per method, ms per two-level
+   iteration (CUDA events) and per FullAggNet forward on the largest
+   2d_iso grid, and a torch.profiler trace of one ML conv; the phase must
+   finish within 90 s.
 
 Then one line ``{"kernels": [...]}`` with each kernel's launches on its
-main path, its largest error against the plain version over every check,
-its time, the plain version's and the library call's time, and its bound
-(``well_spmv``: from the stored nonzeros, ``bound_ell_ms`` counts the ELL
-slots and ``bound_sliced_ms`` the pack's; ``dia_spmv``: (D + 2) * 4 B per
-row); the nvidia-smi line;
+main path (``launches_eval``: on the evaluation's, 0), its largest error
+against the plain version over every check, its time, the plain version's
+and the library call's time, and its bound (``well_spmv``: from the stored
+nonzeros, ``bound_ell_ms`` counts the ELL slots and ``bound_sliced_ms`` the
+pack's; ``dia_spmv``: (D + 2) * 4 B per row); the nvidia-smi line;
 and last ``{"ok": true, "device": {...}}``.
 """
 
@@ -94,6 +107,15 @@ GRID = 4096  # structured path: GRID^2 five-point Poisson (bench.py bench_vcycle
 REF_CONV_16M = 0.1393  # JAX package, same configuration (BENCH_r05.json)
 VCYCLE = dict(nu=2, smoother="chebyshev")
 TWOLEVEL_GRID, TWOLEVEL_SIDE, TWOLEVEL_ITERS = 512, 16, 24  # bench.py bench_twolevel
+# learned two-level evaluation: (family, grids, checkpoint, committed JAX CLI summary)
+EVAL_RUNS = (
+    ("2d_iso", "data_out/2d_iso/test", "runs_iso_r5/grad_best.ckpt",
+     "results/eval_2d_iso_test_rel/eval_test_alpha0.1.json"),
+    ("2d_aniso", "data_out/2d_aniso/test", "runs_aniso_r5_c/grad_best.ckpt",
+     "results/eval_2d_aniso_test_c/eval_test_alpha0.1.json"),
+)
+EVAL_METHODS = ("lloyd", "random", "ml", "ml_agg_only", "ml_int_only")
+EVAL_MEAN_TOL, EVAL_CPU_TOL, EVAL_SECONDS = 0.01, 0.02, 90.0
 
 
 def emit(obj) -> None:
@@ -888,6 +910,102 @@ def small_structured_phase() -> dict:
     return res
 
 
+def eval_phase() -> tuple[dict, dict]:
+    """The learned two-level evaluation (phase 8 of the module docstring).
+    Returns the phase's line and the CUDA kernels' launches on its path."""
+    import torch
+    from mlamg_torch.cli.evaluate_dataset import evaluate, load_model
+    from mlamg_torch.data.grid import Grid
+    from mlamg_torch.mg.cycle import twolevel_solve
+    from mlamg_torch.ops.unstructured import LAUNCHES
+    from mlamg_torch.train import GridBundle, SolveOptions, measured_conv
+
+    t_phase = time.time()
+    quiet = dict(ablations=True, log=lambda *_: None)
+    data = {fam: (Grid.load_dir(d), ck, ref) for fam, d, ck, ref in EVAL_RUNS}
+
+    # --- the main path: counts set to 0 just before, read just after ---
+    LAUNCHES.clear()
+    card, seconds, nets = {}, {}, {}
+    for fam, (grids, ck, _) in data.items():
+        t0 = time.time()
+        nets[fam], _ = load_model(ck, grids, device="cuda")
+        card[fam], seconds[fam] = evaluate(grids, nets[fam], device="cuda", **quiet)
+        torch.cuda.synchronize()
+        seconds[fam]["total"] = time.time() - t0
+    launches = {k: LAUNCHES[k] for k in ("well_spmv", "dia_spmv")}
+    # ---------------------------------------------------------------------
+
+    check(not any(launches.values()), f"eval path launched CUDA kernels: {launches}")
+    out = {"phase": "eval", "launches": launches, "seconds": seconds, "means": {},
+           "committed_means": {}}
+    for fam, (grids, ck, ref) in data.items():
+        with open(ref) as f:
+            committed = json.load(f)
+        means = {m: float(card[fam][m].mean()) for m in EVAL_METHODS}
+        out["means"][fam] = means
+        out["committed_means"][fam] = {m: committed[m] for m in EVAL_METHODS}
+        for m in EVAL_METHODS:
+            v = card[fam][m]
+            check(bool(np.isfinite(v).all()) and v.shape == (len(grids),),
+                  f"eval {fam} {m}: {v}")
+            check(abs(means[m] - committed[m]) <= EVAL_MEAN_TOL,
+                  f"eval {fam} {m}: mean {means[m]} not within {EVAL_MEAN_TOL} of {committed[m]}")
+    check(out["means"]["2d_iso"]["ml"] < out["means"]["2d_iso"]["lloyd"],
+          f"2d_iso: ML {out['means']['2d_iso']['ml']} not below Lloyd "
+          f"{out['means']['2d_iso']['lloyd']}")
+
+    grids_iso = data["2d_iso"][0]
+    again, _ = evaluate(grids_iso, nets["2d_iso"], device="cuda", **quiet)
+    for m in EVAL_METHODS:
+        check(np.array_equal(again[m], card["2d_iso"][m]),
+              f"second 2d_iso run on the card differs for {m}")
+    out["repeat_identical"] = True
+
+    out["cpu_max_abs_diff"], out["forward_differs_cpu"] = {}, {}
+    for fam, (grids, ck, _) in data.items():
+        net_cpu, _ = load_model(ck, grids, device="cpu")
+        cpu, _ = evaluate(grids, net_cpu, device="cpu", **quiet)
+        out["cpu_max_abs_diff"][fam] = {
+            m: float(np.abs(cpu[m] - card[fam][m]).max()) for m in EVAL_METHODS}
+        for m in EVAL_METHODS:
+            check(out["cpu_max_abs_diff"][fam][m] <= EVAL_CPU_TOL,
+                  f"eval {fam} {m}: card and CPU differ by {out['cpu_max_abs_diff'][fam][m]}")
+        differ = 0
+        with torch.no_grad():
+            for g in grids:
+                fwd = [net(b.A, b.k) for net, b in
+                       ((nets[fam], GridBundle.from_grid(g, 0.1, device="cuda")),
+                        (net_cpu, GridBundle.from_grid(g, 0.1, device="cpu")))]
+                differ += not (torch.equal(fwd[0][0].cpu(), fwd[1][0])
+                               and torch.equal(fwd[0][3].cpu(), fwd[1][3]))
+        out["forward_differs_cpu"][fam] = differ
+
+    # timings on the largest 2d_iso grid
+    g = max(grids_iso, key=lambda g: g.n)
+    b = GridBundle.from_grid(g, 0.1, device="cuda")
+    net = nets["2d_iso"]
+    with torch.no_grad():
+        P = net(b.A, b.k)[1]
+        opts = SolveOptions(smoother="multicolor_gs")
+        iters = 20
+        args = {"colors": b.colors, "num_colors": b.num_colors}
+        solve = partial(twolevel_solve, b.A, P, torch.zeros_like(b.x0), b.x0, res_tol=0.0,
+                        max_iter=iters, smoother="multicolor_gs", smoother_args=args)
+        out["largest_2d_iso"] = {
+            "n": g.n, "k": b.k, "num_colors": b.num_colors,
+            "ms_per_twolevel_iteration": cuda_ms(solve, iters=3, warmup=1) / iters,
+            "ms_per_fullaggnet_forward": cuda_ms(lambda: net(b.A, b.k), iters=5, warmup=1),
+            "ml_conv_trace": device_trace(
+                lambda: measured_conv(b.A, P, b.x0, opts, b.colors, b.num_colors),
+                iters=1, kernel="spmv"),
+        }
+    out["seconds_phase"] = time.time() - t_phase
+    check(out["seconds_phase"] <= EVAL_SECONDS,
+          f"eval phase took {out['seconds_phase']:.1f} s (limit {EVAL_SECONDS} s)")
+    return out, launches
+
+
 def main() -> None:
     import torch
 
@@ -961,6 +1079,12 @@ def main() -> None:
     emit(twolevel)
     emit(small_structured_phase())
     all_errs = dia_errs + level_errs + factor_errs
+
+    # --- slice 3: the learned two-level evaluation (no kernel on its path) ---
+    eval_line, eval_launches = eval_phase()
+    emit(eval_line)
+    kernel["launches_eval"] = eval_launches["well_spmv"]
+    dia.update(launches_eval=eval_launches["dia_spmv"])
     dia.update(
         launches=dia_launches,
         launches_vcycles=structured["dia_spmv_launches_cycles"],

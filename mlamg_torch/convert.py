@@ -1,10 +1,10 @@
 """State carried across from the JAX package.
 
-The ported paths have no learned weights: their state is the multilevel
-hierarchy.  :func:`uhierarchy_from_numpy` builds the port's
-:class:`UHierarchy` and :func:`hierarchy_from_numpy` the structured
-:class:`Hierarchy` from plain numpy/scipy data, exactly what ``np.asarray``
-pulls out of the JAX package's hierarchies.
+:func:`uhierarchy_from_numpy` builds the port's :class:`UHierarchy` and
+:func:`hierarchy_from_numpy` the structured :class:`Hierarchy` from plain
+numpy/scipy data, exactly what ``np.asarray`` pulls out of the JAX
+package's hierarchies.  :func:`fullaggnet_from_params` loads a
+checkpoint's learned weights into the port's :class:`FullAggNet`.
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ from mlamg_torch.mg.amg_unstructured import UHierarchy, _make_level
 from mlamg_torch.mg.coarse import CoarseSolver
 from mlamg_torch.mg.cycle import Hierarchy
 from mlamg_torch.mg.factored import BilinearP2D, BoxAgg2D, FactoredSA
+from mlamg_torch.models.agg_interp import FullAggNet
 from mlamg_torch.ops.dia import DIA
 
 
@@ -90,3 +91,55 @@ def hierarchy_from_numpy(As: Sequence[Mapping], Ps: Sequence[Mapping],
         _coarse_from_numpy(coarse, dev),
         tuple(float(v) for v in lmaxs),
     )
+
+
+def _flat_params(tree: Mapping, prefix: str = "") -> dict:
+    """{"a/b/kernel": array} from a nested mapping of numpy arrays."""
+    out = {}
+    for name, v in tree.items():
+        path = f"{prefix}/{name}" if prefix else name
+        out.update(_flat_params(v, path) if isinstance(v, Mapping) else {path: v})
+    return out
+
+
+def _torch_key(path: str) -> str:
+    """flax path -> state_dict key: Dense ``kernel`` -> ``weight`` (taken
+    transposed), LayerNorm ``scale`` -> ``weight``."""
+    *mods, leaf = path.split("/")
+    return ".".join(mods + [{"kernel": "weight", "scale": "weight"}.get(leaf, leaf)])
+
+
+def fullaggnet_from_params(params: Mapping, net_config: Mapping, device=None,
+                           dtype=torch.float32) -> FullAggNet:
+    """The port's :class:`FullAggNet` with a checkpoint's weights.
+
+    ``params`` is a checkpoint's ``best_params``: ``{"params": {"AggNetM":
+    ..., "CNet": ..., "PNet": ...}}`` of numpy arrays.  ``net_config``
+    holds ``dim``, ``num_conv``, ``iterations``, ``bf_width`` and
+    ``rel_strength``.  A flax Dense ``kernel`` (in, out) becomes
+    ``Linear.weight`` (out, in); LayerNorm ``scale``/``bias`` become
+    ``weight``/``bias``.  A missing or unknown key, or a shape that does not
+    fit, raises.
+    """
+    dev = resolve_device(device)
+    bf_width = net_config.get("bf_width")
+    net = FullAggNet(dim=int(net_config["dim"]), num_conv=int(net_config["num_conv"]),
+                     iterations=int(net_config["iterations"]),
+                     bf_width=None if bf_width is None else int(bf_width),
+                     rel_strength=bool(net_config.get("rel_strength", False)))
+    flat = _flat_params(params["params"])
+    state = {}
+    for path, value in flat.items():
+        value = np.asarray(value)
+        state[_torch_key(path)] = torch.from_numpy(
+            np.ascontiguousarray(value.T if path.endswith("/kernel") else value))
+    expected = net.state_dict()
+    missing = sorted(set(expected) - set(state))
+    unknown = sorted(set(state) - set(expected))
+    if missing or unknown:
+        raise ValueError(f"fullaggnet_from_params: missing {missing}, unknown {unknown}")
+    bad = [k for k, v in state.items() if v.shape != expected[k].shape]
+    if bad:
+        raise ValueError(f"fullaggnet_from_params: shapes differ for {bad}")
+    net.load_state_dict(state)
+    return net.to(device=dev, dtype=dtype).eval()

@@ -1,12 +1,18 @@
-"""Problem container and the random-hull FEM generator.
+"""Problem container, ``.grid`` IO and the random-hull FEM generator.
 
-Counterpart of ``mlamg_tpu/data/grid.py`` (``Grid``,
-``mesh_2d_poisson_dirichlet`` and ``random_2d_unstructured``).  Pure
-numpy/scipy, so a seed gives a matrix bit-identical to the JAX package's.
+Counterpart of ``mlamg_tpu/data/grid.py`` (``Grid`` with ``save``,
+``load`` and ``load_dir``, ``mesh_2d_poisson_dirichlet`` and
+``random_2d_unstructured``).  Pure numpy/scipy, so a seed gives a matrix
+bit-identical to the JAX package's.  A ``.grid`` file is a bz2 pickle of
+``{"A": (data, indices, indptr), "x", "extra"}``, read and written by both
+packages.
 """
 
 from __future__ import annotations
 
+import bz2
+import os
+import pickle
 from typing import Callable
 
 import numpy as np
@@ -26,6 +32,35 @@ class Grid:
     @property
     def n(self) -> int:
         return self.A.shape[0]
+
+    def save(self, fname: str) -> None:
+        if ".grid" not in fname:
+            fname = fname + ".grid"
+        A = self.A.tocsr()
+        with bz2.open(fname, "wb") as f:
+            pickle.dump({"A": (A.data, A.indices, A.indptr), "x": self.x,
+                         "extra": self.extra}, f)
+
+    @staticmethod
+    def load(fname: str) -> "Grid":
+        """Read a ``.grid`` file; ``extra["filename"]`` records its path.
+        Unpickling runs code, so load only files this project wrote."""
+        if ".grid" not in fname:
+            fname = fname + ".grid"
+        with bz2.open(fname, "rb") as f:
+            loaded = pickle.load(f)
+        extra = loaded.get("extra", {}) or {}
+        extra["filename"] = fname
+        A = loaded["A"]
+        if isinstance(A, tuple):
+            A = sp.csr_matrix(A)
+        return Grid(A, loaded["x"], extra)
+
+    @staticmethod
+    def load_dir(directory: str) -> list:
+        """Every ``.grid`` file of ``directory``, in file-name order."""
+        return [Grid.load(os.path.join(directory, f))
+                for f in sorted(os.listdir(directory)) if ".grid" in f.lower()]
 
     @staticmethod
     def mesh_2d_poisson_dirichlet(

@@ -1,10 +1,11 @@
-"""Multi-source Bellman-Ford as iterated edge relaxation (push form).
+"""Multi-source Bellman-Ford as iterated edge relaxation.
 
 Counterpart of ``mlamg_tpu/graph/bellman_ford.py`` :func:`bellman_ford`
-and :func:`nearest_center_to_agg`.  Each sweep relaxes every edge at once
-with a segment-min over targets and runs until no distance changes (or
-``max_iter``); ties go to the smallest propagating center id.  Both
-reductions are order-free, so the result equals JAX's bit for bit.
+(push form), :func:`bellman_ford_pull` and :func:`nearest_center_to_agg`.
+Each sweep relaxes every edge at once and runs until no distance changes
+(or ``max_iter``); ties go to the smallest propagating center id.  Every
+reduction is a min, which is order-free, so the result equals JAX's bit
+for bit.
 """
 
 from __future__ import annotations
@@ -50,6 +51,68 @@ def bellman_ford(C, centers: torch.Tensor, max_iter: int | None = None):
         if not bool(improved.any()):
             break
     return dist, near
+
+
+def _transpose_data_order(C) -> torch.Tensor:
+    """Permutation p with ``C.data[p]`` = the transpose's values laid out on
+    C's own (row, col) structure, for a C whose *pattern* is symmetric:
+    a stable sort by (col, row), padding last."""
+    n = C.shape[0]
+    live = C.row < n
+    ck = torch.where(live, C.col, torch.full_like(C.col, n))
+    rk = torch.where(live, C.row, torch.full_like(C.row, n))
+    return torch.sort(ck * (n + 1) + rk, stable=True).indices
+
+
+def bellman_ford_pull(C, centers: torch.Tensor, *, width: int, max_iter: int | None = None):
+    """Gather-only Bellman-Ford, the same contract as :func:`bellman_ford`
+    for a C with a symmetric pattern (directed values).
+
+    Each sweep pulls over the transposed weights laid out in ELL,
+    ``dist_j = min_s dist[col[j, s]] + w^T[j, s]``: two (n, width) gathers
+    and a row-min.  Empty slots hold the column sentinel n (which reads an
+    appended +inf) and weight +inf, so they never relax anything.
+    ``width`` bounds the row degree; a smaller one raises.
+    """
+    n = C.shape[0]
+    if max_iter is None:
+        max_iter = n
+    live = C.row < n
+    deg = torch.bincount(C.row[live], minlength=1)
+    if int(deg.max()) > width:
+        raise ValueError(
+            f"bellman_ford_pull: width={width} is smaller than the max row "
+            f"degree {int(deg.max())}; recompute width with dataset_bf_width"
+        )
+    data_t = C.data[_transpose_data_order(C)]
+    rsafe = C.row.clamp(max=n - 1)
+    within = torch.arange(C.row.shape[0], device=C.device) - C.indptr[rsafe]
+    slot = torch.where(live & (within < width), rsafe * width + within,
+                       torch.full_like(rsafe, n * width))
+    sentinel = torch.full_like(C.col, n)
+    colE = (torch.full((n * width + 1,), n, dtype=torch.int64, device=C.device)
+            .scatter_(0, slot, torch.where(live, C.col, sentinel))[:-1].view(n, width))
+    inf = torch.full_like(data_t, float("inf"))
+    wE = (torch.full((n * width + 1,), float("inf"), dtype=C.dtype, device=C.device)
+          .scatter_(0, slot, torch.where(live, data_t, inf))[:-1].view(n, width))
+
+    centers = centers.to(device=C.device, dtype=torch.int64)
+    dist = torch.full((n + 1,), float("inf"), dtype=C.dtype, device=C.device)
+    dist[centers] = 0.0
+    near = torch.full((n + 1,), n, dtype=torch.int64, device=C.device)
+    near[centers] = centers
+    for _ in range(max_iter):
+        cand = dist[colE] + wE  # (n, width); slot n of dist stays +inf
+        best = cand.min(1).values
+        improved = best < dist[:n]
+        new_dist = torch.where(improved, best, dist[:n])
+        near_cand = torch.where(cand <= new_dist[:, None], near[colE],
+                                torch.full_like(colE, n)).min(1).values
+        near[:n] = torch.where(improved, near_cand, near[:n])
+        dist[:n] = new_dist
+        if not bool(improved.any()):
+            break
+    return dist[:n], near[:n]
 
 
 def nearest_center_to_agg(centers: torch.Tensor, nearest: torch.Tensor):

@@ -17,6 +17,7 @@ import torch
 
 from mlamg_torch.graph.bellman_ford import bellman_ford, nearest_center_to_agg
 from mlamg_torch.ops.segment import segment_max, segment_min
+from mlamg_torch.utils import prng
 
 
 def _segment_argmax(values: torch.Tensor, seg: torch.Tensor,
@@ -112,15 +113,14 @@ def lloyd_distance(C, distance: str = "same"):
     return C.with_data(data)
 
 
-def lloyd_aggregation(C, ratio: float = 0.03, maxiter: int = 10, seeds=None,
-                      generator: torch.Generator | None = None,
+def lloyd_aggregation(C, ratio: float = 0.03, maxiter: int = 10, seeds=None, key=None,
                       distance: str = "same"):
     """Aggregate nodes by Lloyd clustering on the weighted graph ``C``.
 
-    ``seeds`` gives the initial centers; without it ``k = ceil(ratio*n)``
-    seeds are drawn as a random permutation from ``generator`` (a CPU
-    ``torch.Generator``; seed 0 when None).  These draws are not
-    ``jax.random``'s bits.
+    ``seeds`` gives the initial centers; without it the first
+    ``k = ceil(ratio*n)`` of ``permutation(key, n)`` (``key`` defaults to
+    ``PRNGKey(0)``), the JAX package's draw bit for bit
+    (:mod:`mlamg_torch.utils.prng`).
 
     Returns (agg_id, roots, seeds): assignment vector, final centers,
     initial seeds.
@@ -129,9 +129,7 @@ def lloyd_aggregation(C, ratio: float = 0.03, maxiter: int = 10, seeds=None,
     n = C.shape[0]
     if seeds is None:
         k = int(math.ceil(ratio * n))
-        if generator is None:
-            generator = torch.Generator().manual_seed(0)
-        seeds = torch.randperm(n, generator=generator)[:k]
+        seeds = prng.permutation(prng.PRNGKey(0) if key is None else key, n)[:k]
     if not isinstance(seeds, torch.Tensor):
         seeds = torch.from_numpy(np.asarray(seeds, np.int64))
     seeds = seeds.to(device=C.device, dtype=torch.int64)

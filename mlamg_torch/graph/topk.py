@@ -1,0 +1,22 @@
+"""Top-k node selection (counterpart of ``mlamg_tpu/graph/topk.py``).
+
+``jax.lax.top_k`` breaks ties by the earliest index; ``torch.topk``
+promises no order, so the port takes the first k of a *stable* descending
+sort, which keeps equal scores in index order.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def topk_indices(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Indices of the k largest entries of 1-D ``x``, ties to the earlier
+    index."""
+    return torch.sort(x.reshape(-1), descending=True, stable=True).indices[:k]
+
+
+def topk_mask(x: torch.Tensor, k: int) -> torch.Tensor:
+    """(n,) vector with 1.0 at the k largest entries of ``x``."""
+    x = x.reshape(-1)
+    return torch.zeros_like(x).index_fill_(0, topk_indices(x, k), 1.0)

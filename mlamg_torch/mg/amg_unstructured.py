@@ -30,6 +30,7 @@ from mlamg_torch.mg.coarse import CoarseSolver
 from mlamg_torch.ops import matmul
 from mlamg_torch.ops.segment import segment_sum
 from mlamg_torch.ops.sparse import CSR
+from mlamg_torch.utils import prng
 
 # ---------------------------------------------------------------------------
 # Pattern computation and truncation (host, scipy)
@@ -267,9 +268,11 @@ def build_unstructured_hierarchy(
 
     Setup runs on ``device``: strength and Lloyd on the hierarchy's device,
     the Galerkin product in scipy (``rap_mode="auto"``; the device product,
-    ``"device"``, is not ported yet and raises).  ``seed`` seeds the
-    ``torch.Generator`` of ``seed_mode="random"``.  ``profile_out``, when given, receives seconds
-    per setup stage.
+    ``"device"``, is not ported yet and raises).  With
+    ``seed_mode="random"``, each level splits a key chain that starts at
+    ``PRNGKey(seed)`` and draws its Lloyd seeds from the split-off key, as
+    the JAX package does.
+    ``profile_out``, when given, receives seconds per setup stage.
 
     Returns (hierarchy, perm): solve in permuted space, i.e. x =
     unpermute(solution of (P A P^T) y = b[perm]).
@@ -304,7 +307,7 @@ def build_unstructured_hierarchy(
         prof[label] = prof.get(label, 0.0) + (time.time() - t0)
         return time.time()
 
-    generator = torch.Generator().manual_seed(seed)
+    key = prng.PRNGKey(seed)
     levels: list[dict] = []
     perm0 = None
     level_A = A_sp
@@ -332,7 +335,9 @@ def build_unstructured_hierarchy(
         k = int(np.ceil(alpha * n))
 
         A_setup = CSR.from_scipy(level_A, dtype=torch.float32, device=dev)
-        C = strength_measure(A_setup, strength_kind)
+        C = strength_measure(A_setup, strength_kind,
+                             width=int(np.diff(level_A.indptr).max()))
+        key, sub = prng.split(key)
         if seed_mode == "stride":
             # the level is RCM-ordered, so an index stride is a spatially
             # stratified seeding
@@ -341,7 +346,7 @@ def build_unstructured_hierarchy(
             agg_id, _, _ = lloyd_aggregation(C, maxiter=lloyd_maxiter, seeds=seeds)
         else:
             agg_id, _, _ = lloyd_aggregation(
-                C, ratio=alpha, maxiter=lloyd_maxiter, generator=generator
+                C, ratio=alpha, maxiter=lloyd_maxiter, key=sub
             )
         agg = agg_id.cpu().numpy().copy()
         t = _tick("strength_lloyd", t)

@@ -6,12 +6,11 @@ is Python on the host and every SpMV goes through ``ops/matmul.py``, so a
 DIA operator on the card launches the ``dia_spmv`` kernel.  The stopping
 test reads each iteration's norm on the host.
 
-Ported: ``twolevel_solve`` with weighted Jacobi (fused or not) and
-Chebyshev with a given ``lmax``, ``Hierarchy``, ``vcycle`` and
-``vcycle_solve``, for dense and factored prolongators.  Not ported yet
-(``ROADMAP.md``): ``build_hierarchy``, sparse (CSR/ELL) prolongators, the
-``multicolor_gs`` smoother (Queue 1 item 4) and the power-iteration
-``lmax`` default of the Chebyshev smoother (Queue 1 item 1).
+Ported: ``twolevel_solve`` with weighted Jacobi (fused or not),
+Chebyshev (``lmax`` by power iteration unless given) and multicolor
+Gauss-Seidel, ``Hierarchy``, ``vcycle`` and ``vcycle_solve``, for dense,
+sparse (CSR/ELL) and factored prolongators.  Not ported yet
+(``ROADMAP.md``): ``build_hierarchy``.
 """
 
 from __future__ import annotations
@@ -23,11 +22,13 @@ from typing import Tuple
 
 import torch
 
+from mlamg_torch.graph.strength import power_iteration_lmax
 from mlamg_torch.mg.coarse import CoarseSolver
 from mlamg_torch.mg.factored import BilinearP2D, FactoredSA, coarse_operator_factored
-from mlamg_torch.mg.smoothers import _dinv, chebyshev, jacobi
+from mlamg_torch.mg.smoothers import _dinv, chebyshev, jacobi, multicolor_gauss_seidel
 from mlamg_torch.ops import matmul
 from mlamg_torch.ops.dia import DIA, dia_jacobi_operator
+from mlamg_torch.ops.sparse import CSR, ELL
 
 
 def _is_factored(P) -> bool:
@@ -35,20 +36,20 @@ def _is_factored(P) -> bool:
 
 
 def _interp(P, v: torch.Tensor) -> torch.Tensor:
-    """P @ v for a dense or factored P."""
+    """P @ v for a dense, sparse (CSR/ELL) or factored P."""
     if _is_factored(P):
         return P.interp(v)
-    if isinstance(P, torch.Tensor):
-        return P @ v
+    if isinstance(P, (torch.Tensor, CSR, ELL)):
+        return matmul.spmv(P, v)
     raise TypeError(f"_interp: unsupported prolongator {type(P).__name__}")
 
 
 def _restrict(P, v: torch.Tensor) -> torch.Tensor:
-    """P.T @ v for a dense or factored P."""
+    """P.T @ v for a dense, sparse (CSR/ELL) or factored P."""
     if _is_factored(P):
         return P.restrict(v)
-    if isinstance(P, torch.Tensor):
-        return P.T @ v
+    if isinstance(P, (torch.Tensor, CSR, ELL)):
+        return matmul.spmv_t(P, v)
     raise TypeError(f"_restrict: unsupported prolongator {type(P).__name__}")
 
 
@@ -56,8 +57,8 @@ def coarse_operator(A, P) -> torch.Tensor:
     """Dense Galerkin coarse operator P^T A P."""
     if _is_factored(P):
         return coarse_operator_factored(A, P)
-    if isinstance(P, torch.Tensor):
-        return P.T @ matmul.spmm(A, P)
+    if isinstance(P, (torch.Tensor, CSR, ELL)):
+        return matmul.rap_dense(A, P)
     raise TypeError(f"coarse_operator: unsupported prolongator {type(P).__name__}")
 
 
@@ -91,22 +92,16 @@ def twolevel_solve(
         raise RuntimeError("One of res_tol or error_tol must be set!")
     tol = res_tol if res_tol is not None else error_tol
     use_res = res_tol is not None
-    smoother_args = smoother_args or {}
-    if smoother == "multicolor_gs":
-        raise NotImplementedError(
-            "twolevel_solve: multicolor_gs is not ported yet (ROADMAP.md Queue 1 item 4)"
-        )
-    if smoother == "chebyshev" and "lmax" not in smoother_args:
-        raise NotImplementedError(
-            "twolevel_solve: the power-iteration lmax default is not ported yet "
-            "(ROADMAP.md Queue 1 item 1); pass smoother_args={'lmax': ...}"
-        )
-    if smoother not in ("jacobi", "chebyshev"):
+    smoother_args = dict(smoother_args or {})
+    if smoother not in ("jacobi", "chebyshev", "multicolor_gs"):
         raise ValueError(f"unknown smoother {smoother}")
 
     Dinv = _dinv(A)
     if coarse is None:
         coarse = CoarseSolver.factor(coarse_operator(A, P), singular=singular)
+    if smoother == "chebyshev" and "lmax" not in smoother_args:
+        # the spectrum bound of D^-1 A by power iteration
+        smoother_args["lmax"] = float(power_iteration_lmax(A, Dinv).abs())
 
     if fused_jacobi is None:
         fused_jacobi = isinstance(A, DIA) and A.device.type == "cuda"
@@ -124,6 +119,9 @@ def twolevel_solve(
             return x
         if smoother == "jacobi":
             return jacobi(A, b, x, Dinv, omega=jacobi_weight, nu=nu)
+        if smoother == "multicolor_gs":
+            return multicolor_gauss_seidel(A, b, x, smoother_args["colors"],
+                                           smoother_args["num_colors"], nu=nu)
         return chebyshev(A, b, x, smoother_args["lmax"], degree=nu + 1, Dinv=Dinv)
 
     err = torch.zeros(max_iter, dtype=x0.dtype, device=x0.device)

@@ -1,8 +1,10 @@
-"""Stationary smoothers (counterpart of ``mlamg_tpu/mg/smoothers.py``
-:func:`jacobi` and :func:`chebyshev`): SpMVs and axpys only."""
+"""Stationary smoothers (counterpart of ``mlamg_tpu/mg/smoothers.py``):
+weighted and l1 Jacobi, Chebyshev, and multicolor Gauss-Seidel over a
+greedy colouring, all SpMVs and axpys."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from mlamg_torch.ops.matmul import spmv, spmv_affine
@@ -19,6 +21,15 @@ def jacobi(A, b, x, Dinv=None, omega: float = 0.666, nu: int = 2):
         Dinv = _dinv(A)
     for _ in range(nu):
         x = x + omega * Dinv * (b - spmv(A, x))
+    return x
+
+
+def l1_jacobi(A, b, x, nu: int = 2):
+    """Jacobi with the l1 diagonal d_i = sum_j |a_ij| (always convergent)."""
+    absrow = spmv(A.abs(), torch.ones(A.shape[1], dtype=A.dtype, device=A.device))
+    Dinv = 1.0 / torch.where(absrow > 0, absrow, torch.ones_like(absrow))
+    for _ in range(nu):
+        x = x + Dinv * (b - spmv(A, x))
     return x
 
 
@@ -48,4 +59,35 @@ def chebyshev(A, b, x, lmax: float, lmin_frac: float = 0.25, degree: int = 3,
         d = rho_new * rho * d + (2.0 * rho_new / delta) * resid(x)
         x = x + d
         rho = rho_new
+    return x
+
+
+def greedy_coloring(A_scipy) -> np.ndarray:
+    """Host-side greedy graph colouring in row order: each row takes the
+    smallest colour none of its lower-numbered neighbours has.  Returns (n,)
+    int32 colours."""
+    import scipy.sparse as sp
+
+    A = sp.csr_matrix(A_scipy)
+    n = A.shape[0]
+    colors = np.full(n, -1, dtype=np.int32)
+    for i in range(n):
+        nbrs = A.indices[A.indptr[i]: A.indptr[i + 1]]
+        used = set(colors[nbrs[nbrs < i]])
+        c = 0
+        while c in used:
+            c += 1
+        colors[i] = c
+    return colors
+
+
+def multicolor_gauss_seidel(A, b, x, colors: torch.Tensor, num_colors: int, nu: int = 1):
+    """Gauss-Seidel under a graph colouring: colours in sequence, each
+    colour's rows at once (the full residual recomputed per colour).  Equal
+    to a GS sweep in the colouring's order."""
+    Dinv = _dinv(A)
+    for _ in range(nu):
+        for c in range(num_colors):
+            upd = x + Dinv * (b - spmv(A, x))
+            x = torch.where(colors == c, upd, x)
     return x

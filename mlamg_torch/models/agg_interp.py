@@ -1,0 +1,154 @@
+"""Aggregation and interpolation networks (counterpart of
+``mlamg_tpu/models/agg_interp.py``).
+
+``FullAggNet`` runs
+
+    node scores (AggNet: iterated TAGConv+MLP, top-k)           -> centers
+    Bellman-Ford edge weights (CNet MPNN)                       -> C matrix
+    Bellman-Ford                                                -> aggregates
+    interpolation smoother P-hat (PNet MPNN on 2-feature graph) -> P = P-hat Agg
+
+The shape-bucket padding of the GA's fitness (``pad``) and ``AggOnlyNet``
+are not ported yet.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from mlamg_torch.graph.bellman_ford import bellman_ford, bellman_ford_pull, nearest_center_to_agg
+from mlamg_torch.graph.topk import topk_indices, topk_mask
+from mlamg_torch.mg.interp import remap_columns
+from mlamg_torch.models.gnn import MLP, EdgeModel, InstanceNorm, NNConv, TAGConv
+from mlamg_torch.models.graphdata import (
+    GraphData, gather_dst, gather_src, graph_from_matrix, graph_from_matrix_basic,
+)
+from mlamg_torch.ops.sparse import CSR
+
+
+class MPNN(nn.Module):
+    """Residual message passing with edge-feature updates: an input lift,
+    ``num_internal_conv`` NNConv + EdgeModel blocks on instance-normalised
+    node features, and scalar node and edge heads (ReLU).  ``edge_features``
+    is the input graph's edge feature count."""
+
+    def __init__(self, dim: int, num_internal_conv: int = 4, edge_features: int = 1):
+        super().__init__()
+        self.num_internal_conv = num_internal_conv
+        self.norm = InstanceNorm()
+        self.node_conv_in = NNConv(1, dim, edge_features)
+        self.edge_conv_in = EdgeModel(2 * dim + edge_features, dim, 2)
+        for i in range(num_internal_conv):
+            setattr(self, f"node_conv_{i}", NNConv(dim, dim, 2))
+            setattr(self, f"edge_conv_{i}", EdgeModel(2 * dim + 2, dim, 2))
+        self.node_conv_out = NNConv(dim, 1, 2)
+        self.edge_conv_out = EdgeModel(1 + 1 + 2, dim, 1)
+
+    def forward(self, g: GraphData):
+        x, e, nm = g.x, g.edge_attr, g.node_mask
+
+        def block(node_conv, edge_conv, x, e, edge_in):
+            x = torch.relu(node_conv(g, self.norm(x, nm), edge_in)) + x  # (n,1) -> (n,dim)
+            e_new = edge_conv(gather_src(g, x), gather_dst(g, x), e)
+            return x, torch.relu(e_new) + e  # (E,Fe) -> (E,2)
+
+        x, e = block(self.node_conv_in, self.edge_conv_in, x, e, e.abs())
+        for i in range(self.num_internal_conv):
+            x, e = block(getattr(self, f"node_conv_{i}"), getattr(self, f"edge_conv_{i}"), x, e, e)
+        x = torch.relu(self.node_conv_out(g, self.norm(x, nm), e))
+        e = torch.relu(self.edge_conv_out(gather_src(g, x), gather_dst(g, x), e))
+        return x, e
+
+
+class AggBinarizationLayer(nn.Module):
+    """[InstanceNorm -> TAGConv -> ReLU -> MLP] x num_conv -> top-k.  The
+    TAGConv edge weight is the graph's last edge feature."""
+
+    def __init__(self, dim: int, num_conv: int = 6, in_dim: int = 1):
+        super().__init__()
+        self.num_conv = num_conv
+        self.norm = InstanceNorm()
+        for i in range(num_conv):
+            head = 1 if i == num_conv - 1 else dim
+            setattr(self, f"tag_{i}", TAGConv(in_dim if i == 0 else dim, dim))
+            setattr(self, f"mlp_{i}", MLP(dim, [dim] * 4 + [head]))
+
+    def forward(self, g: GraphData, x: torch.Tensor, k: int):
+        ew = g.edge_attr[:, -1]
+        for i in range(self.num_conv):
+            x = getattr(self, f"tag_{i}")(g, self.norm(x, g.node_mask), ew)
+            x = getattr(self, f"mlp_{i}")(torch.relu(x))
+        scores = x[:, 0]
+        return topk_mask(scores, k)[:, None], scores
+
+
+class AggNet(nn.Module):
+    """Iterated binarization: each layer after the first reads the previous
+    layer's 0/1 top-k mask."""
+
+    def __init__(self, dim: int, iterations: int = 2, num_conv: int = 6):
+        super().__init__()
+        self.iterations = iterations
+        for i in range(iterations):
+            setattr(self, f"layer_{i}", AggBinarizationLayer(dim, num_conv))
+
+    def forward(self, g: GraphData, k: int):
+        x, scores = g.x, None
+        for i in range(self.iterations):
+            x, scores = getattr(self, f"layer_{i}")(g, x, k)
+        return x[:, 0], scores
+
+
+class FullAggNet(nn.Module):
+    """AggNet + CNet (Bellman-Ford weights) + PNet (interpolation smoother).
+
+    ``bf_width`` (the largest row degree of A's symmetric pattern) selects
+    the pull-mode Bellman-Ford and sizes the graphs' ``in_ell``; None runs
+    the push form.  ``rel_strength`` adds the row-relative strength edge
+    feature to the AggNet/CNet graph.
+    """
+
+    def __init__(self, dim: int = 64, num_conv: int = 2, iterations: int = 4,
+                 bf_width: int | None = None, rel_strength: bool = False):
+        super().__init__()
+        self.bf_width, self.rel_strength = bf_width, rel_strength
+        self.PNet = MPNN(dim, num_internal_conv=4, edge_features=2)
+        self.AggNetM = AggNet(dim, iterations=iterations, num_conv=num_conv)
+        self.CNet = MPNN(dim, num_internal_conv=5, edge_features=2 if rel_strength else 1)
+
+    def _bf(self, C: CSR, centers: torch.Tensor):
+        if self.bf_width is not None:
+            return bellman_ford_pull(C, centers, width=self.bf_width)
+        return bellman_ford(C, centers)
+
+    def basic_graph(self, A: CSR) -> GraphData:
+        return graph_from_matrix_basic(A, ell_width=self.bf_width,
+                                       rel_strength=self.rel_strength)
+
+    def _aggregate(self, A: CSR, k: int):
+        """(agg_id, C, centers, node_mask) of the learned aggregation."""
+        g = self.basic_graph(A)
+        node_mask, scores = self.AggNetM(g, k)
+        centers = topk_indices(scores, k)
+        _, bf_edges = self.CNet(g)
+        C = A.with_data(torch.where(A.mask, bf_edges[:, 0], torch.zeros_like(A.data)))
+        _, nearest = self._bf(C, centers)
+        return nearest_center_to_agg(centers, nearest), C, centers, node_mask
+
+    def agg_only(self, A: CSR, k: int) -> torch.Tensor:
+        """The learned aggregation alone: agg_id."""
+        return self._aggregate(A, k)[0]
+
+    def int_only(self, A: CSR, agg_id: torch.Tensor, k: int) -> CSR:
+        """The learned interpolation of a given aggregation."""
+        _, p_edges = self.PNet(graph_from_matrix(A, agg_id))
+        return remap_columns(A, p_edges[:, 0], agg_id, k)  # P = P_hat Agg
+
+    def forward(self, A: CSR, k: int):
+        """Returns (agg_id, P (CSR n x k), C, centers, node_mask)."""
+        agg_id, C, centers, node_mask = self._aggregate(A, k)
+        _, p_edges = self.PNet(graph_from_matrix(A, agg_id, ell_width=self.bf_width))
+        P = remap_columns(A, p_edges[:, 0], agg_id, k)
+        return agg_id, P, C, centers, node_mask
+

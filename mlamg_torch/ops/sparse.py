@@ -1,25 +1,65 @@
-"""Padded CSR container (counterpart of ``mlamg_tpu/ops/sparse.py``).
+"""Padded CSR and ELL containers (counterpart of ``mlamg_tpu/ops/sparse.py``).
 
 Padding follows the JAX package's convention: padded entries have
 ``row == shape[0]`` (an out-of-range sentinel that segment reductions
 drop), ``col == 0`` and ``data == 0``, and sit at the tail.  Row and column
 ids are int64, the index type of torch's scatter/gather ops.
+
+Sums over a row or a column never scatter: :func:`segment_slots` lists
+each segment's entries in entry order, and :func:`slot_sum` adds them
+slot by slot.  That is the order of the JAX package's ``segment_sum`` on
+the CPU, and it is the same on every run on the card, where
+``index_add_`` would add in the order its atomics land.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from functools import cached_property
 from typing import Tuple
 
 import numpy as np
 import torch
 
 from mlamg_torch.device import resolve_device
+from mlamg_torch.ops.segment import ordered_sum
 
 
 def round_up(x: int, m: int) -> int:
     """Round ``x`` up to a multiple of ``m``."""
     return ((x + m - 1) // m) * m
+
+
+def segment_slots(ids: torch.Tensor, num_segments: int,
+                  width: int | None = None) -> torch.Tensor:
+    """(num_segments, width) positions of each segment's entries, in entry
+    order; ``len(ids)`` fills the empty slots.  Ids >= ``num_segments`` are
+    dropped.  ``width`` defaults to the largest segment; a smaller one
+    raises."""
+    E = ids.shape[0]
+    key = ids.clamp(max=num_segments)
+    order = torch.sort(key, stable=True).indices
+    skey = key[order]
+    counts = torch.bincount(key, minlength=num_segments + 1)
+    longest = int(counts[:num_segments].max()) if num_segments else 0
+    if width is None:
+        width = longest
+    elif longest > width:
+        raise ValueError(f"segment_slots: width={width} is smaller than the "
+                         f"largest segment ({longest} entries)")
+    first = torch.cumsum(counts, 0) - counts
+    within = torch.arange(E, device=ids.device) - first[skey]
+    slot = torch.where(skey < num_segments, skey * width + within,
+                       torch.full_like(skey, num_segments * width))
+    out = torch.full((num_segments * width + 1,), E, dtype=torch.int64, device=ids.device)
+    return out.scatter_(0, slot, order)[:-1].view(num_segments, width)
+
+
+def slot_sum(values: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
+    """out[i] = sum_s values[slots[i, s]], added in slot order (a slot equal
+    to ``len(values)`` adds zero)."""
+    pad = values.new_zeros((1,) + tuple(values.shape[1:]))
+    return ordered_sum(torch.cat([values, pad])[slots], 1)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,7 +145,70 @@ class CSR:
     def with_data(self, data: torch.Tensor) -> "CSR":
         if data.shape != self.data.shape:
             raise ValueError(f"data shape {tuple(data.shape)} != {tuple(self.data.shape)}")
-        return dataclasses.replace(self, data=data)
+        out = dataclasses.replace(self, data=data)
+        for name in ("row_slots", "col_slots"):  # same pattern, same slots
+            if name in self.__dict__:
+                out.__dict__[name] = self.__dict__[name]
+        return out
 
     def abs(self) -> "CSR":
         return self.with_data(self.data.abs())
+
+    @cached_property
+    def row_slots(self) -> torch.Tensor:
+        """(m, max row degree) entry positions of each row (see
+        :func:`segment_slots`); built once per pattern."""
+        return segment_slots(self.row, self.shape[0])
+
+    @cached_property
+    def col_slots(self) -> torch.Tensor:
+        """(n, max column degree) entry positions of each column."""
+        col = torch.where(self.mask, self.col, torch.full_like(self.col, self.shape[1]))
+        return segment_slots(col, self.shape[1])
+
+    def to_ell(self, width: int | None = None) -> "ELL":
+        """ELL repack: each row's entries in order, zero-filled (col 0)."""
+        slots = self.row_slots if width is None else segment_slots(self.row, self.shape[0], width)
+        zero = torch.zeros(1, dtype=self.dtype, device=self.device)
+        data = torch.cat([self.data, zero])[slots]
+        col = torch.cat([self.col, torch.zeros(1, dtype=self.col.dtype, device=self.device)])[slots]
+        return ELL(data, col, self.shape)
+
+    def todense(self) -> torch.Tensor:
+        """Dense (m, n); duplicate coordinates sum in entry order."""
+        return self.to_ell().todense()
+
+
+@dataclasses.dataclass(frozen=True)
+class ELL:
+    """Fixed-width rows: ``data`` (m, w) and ``col`` (m, w) int64, value 0
+    and column 0 in padding slots."""
+
+    data: torch.Tensor
+    col: torch.Tensor
+    shape: Tuple[int, int]
+
+    @property
+    def width(self) -> int:
+        return int(self.data.shape[1])
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.data.dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.data.device
+
+    @cached_property
+    def col_slots(self) -> torch.Tensor:
+        """(n, w') positions in the flattened slots of each column."""
+        return segment_slots(self.col.reshape(-1), self.shape[1])
+
+    def todense(self) -> torch.Tensor:
+        """Dense (m, n); duplicate coordinates sum in slot order."""
+        m, n = self.shape
+        out = torch.zeros((m, n), dtype=self.dtype, device=self.device)
+        for s in range(self.width):  # one entry per row per call: no collisions
+            out.scatter_add_(1, self.col[:, s:s + 1], self.data[:, s:s + 1])
+        return out

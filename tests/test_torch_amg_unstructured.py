@@ -275,11 +275,44 @@ def test_random_seed_mode_is_seeded(hull_grid):
     assert all(torch.equal(a.agg, b.agg) for a, b in zip(h1.levels, h2.levels))
 
 
+def test_random_seed_mode_draws_jax_seeds(hull_grid):
+    """seed_mode="random" splits PRNGKey(seed) once per level and draws each
+    level's Lloyd seeds from the split-off key, as JAX does: same
+    aggregates at every level (the port drew them from a torch.Generator
+    before)."""
+    kw = dict(BUILD, seed_mode="random", fmt="csr", seed=1)
+    ht, _ = tamg.build_unstructured_hierarchy(hull_grid, device=CPU, **kw)
+    hj, _ = jamg.build_unstructured_hierarchy(hull_grid, **kw)
+    assert len(ht.levels) == len(hj.levels) >= 2
+    for lt, lj in zip(ht.levels, hj.levels):
+        assert lt.k == lj.k
+        np.testing.assert_array_equal(lt.agg.numpy(), np.asarray(lj.agg))
+
+
+def test_lloyd_default_seeds_are_jax_permutation_on_the_hull(hull_grid):
+    """lloyd_aggregation without seeds: permutation(PRNGKey(0), n)[:k]."""
+    from mlamg_tpu.graph.lloyd import lloyd_aggregation as j_lloyd
+    from mlamg_tpu.graph.strength import strength_measure as j_strength
+    from mlamg_torch.graph.lloyd import lloyd_aggregation
+    from mlamg_torch.graph.strength import strength_measure
+
+    Ct = strength_measure(CSR.from_scipy(hull_grid, device=CPU), "abs")
+    Cj = j_strength(JCSR.from_scipy(hull_grid, dtype=jnp.float32), "abs")
+    agg_t, roots_t, seeds_t = lloyd_aggregation(Ct, ratio=0.05, maxiter=3)
+    agg_j, roots_j, seeds_j = j_lloyd(Cj, ratio=0.05, maxiter=3)
+    for a, b in ((seeds_t, seeds_j), (roots_t, roots_j), (agg_t, agg_j)):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
 def test_setup_rejects_asymmetric_and_unported_options(hull_grid):
     A = sp.csr_matrix(np.array([[2.0, -1.0], [0.0, 2.0]], np.float32))
     with pytest.raises(ValueError, match="symmetric"):
         tamg.build_unstructured_hierarchy(A, fmt="csr", device=CPU)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tamg.build_unstructured_hierarchy(hull_grid, rap_mode="device", device=CPU)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tamg.build_unstructured_hierarchy(hull_grid, strength_kind="olson", device=CPU)
+    # olson, unported in slice 1, builds the same level-0 aggregates as JAX
+    ht, _ = tamg.build_unstructured_hierarchy(hull_grid, strength_kind="olson", device=CPU,
+                                              fmt="csr", **BUILD)
+    hj, _ = jamg.build_unstructured_hierarchy(hull_grid, strength_kind="olson", fmt="csr",
+                                              **BUILD)
+    np.testing.assert_array_equal(ht.levels[0].agg.numpy(), np.asarray(hj.levels[0].agg))

@@ -98,6 +98,33 @@ def test_structured_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
     assert h.As[0].device.type == "cpu" and h.coarse.lu.shape == (64, 64)
 
 
+def test_evaluation_entry_points_default_to_cuda_and_raise_without_it(no_cuda, tmp_path):
+    import pickle
+
+    from mlamg_torch.cli import evaluate_dataset
+    from mlamg_torch.convert import fullaggnet_from_params
+    from mlamg_torch.data.grid import Grid
+    from mlamg_torch.train import GridBundle
+
+    g = Grid.load_dir(str(REPO / "data_out" / "2d_iso" / "test"))[2]
+    with open(REPO / "runs_iso_r5" / "grad_best.ckpt", "rb") as f:
+        ck = pickle.load(f)
+    config = ck["extra"]["net_config"]
+    argv = [str(REPO / "data_out" / "2d_iso" / "test"), "--model",
+            str(REPO / "runs_iso_r5" / "grad_best.ckpt"), "--out", str(tmp_path)]
+    for call in (lambda: GridBundle.from_grid(g, 0.1),
+                 lambda: fullaggnet_from_params(ck["best_params"], config),
+                 lambda: evaluate_dataset.main(argv)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    b = GridBundle.from_grid(g, 0.1, device="cpu")
+    net = fullaggnet_from_params(ck["best_params"], config, device="cpu")
+    assert b.A.device.type == "cpu" and next(net.parameters()).device.type == "cpu"
+    summary = evaluate_dataset.main(argv + ["--device", "cpu"])
+    assert summary["n_grids"] == 10 and 0 < summary["ml"] < 1
+    assert (tmp_path / "eval_test_alpha0.1.pkl").exists()
+
+
 def run_smoke(cwd: Path):
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
     return subprocess.run(

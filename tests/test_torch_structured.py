@@ -405,11 +405,28 @@ def test_twolevel_solve_builds_its_coarse_and_takes_chebyshev(twolevel64):
 
 
 def test_twolevel_solve_unported_options_raise(twolevel64):
-    _, _, _, At, Pt, ct = twolevel64
+    """Only a missing tolerance and an unknown smoother raise now: the
+    multicolor Gauss-Seidel smoother and Chebyshev's power-iteration lmax
+    (unported in slice 2) match JAX."""
+    Aj, Pj, cj, At, Pt, ct = twolevel64
     x = torch.zeros(64 * 64, dtype=F64)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        cycle.twolevel_solve(At, Pt, x, x, res_tol=0.0, smoother="multicolor_gs", coarse=ct)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
-        cycle.twolevel_solve(At, Pt, x, x, res_tol=0.0, smoother="chebyshev", coarse=ct)
     with pytest.raises(RuntimeError, match="res_tol or error_tol"):
         cycle.twolevel_solve(At, Pt, x, x, coarse=ct)
+    with pytest.raises(ValueError, match="unknown smoother"):
+        cycle.twolevel_solve(At, Pt, x, x, res_tol=0.0, smoother="sor", coarse=ct)
+    from mlamg_tpu.mg.smoothers import greedy_coloring
+
+    colors = greedy_coloring(poisson2d(64))
+    x0 = np.random.RandomState(2).randn(64 * 64)
+    for smoother, args_j, args_t in (
+        ("multicolor_gs", {"colors": jnp.asarray(colors), "num_colors": 2},
+         {"colors": t(colors.astype(np.int64)), "num_colors": 2}),
+        ("chebyshev", {}, {}),
+    ):
+        kw = dict(res_tol=0.0, max_iter=6, smoother=smoother)
+        _, conv_j, err_j, _ = _j_twolevel(Aj, Pj, jnp.zeros(64 * 64), jnp.asarray(x0), False,
+                                          coarse=cj, smoother_args=args_j, **kw)
+        _, conv_t, err_t, _ = cycle.twolevel_solve(At, Pt, torch.zeros_like(t(x0)), t(x0),
+                                                   coarse=ct, smoother_args=args_t, **kw)
+        np.testing.assert_allclose(conv_t, float(conv_j), rtol=1e-9)
+        close(err_t, err_j, rtol=1e-9, atol=0)

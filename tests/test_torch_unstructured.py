@@ -233,10 +233,17 @@ def test_strength_measure_matches_jax(hull_strength, kind):
 
 
 def test_strength_evolution_not_ported_yet(hull_strength):
-    C = CSR.from_scipy(hull_strength, device=CPU)
+    """Ported since: the evolution measures need the row-degree width and
+    then equal JAX's on the hull."""
+    A = hull_strength
+    C = CSR.from_scipy(A, dtype=torch.float64, device=CPU)
+    w = int(np.diff(sp.csr_matrix(A).indptr).max())
     for kind in ("evolution", "olson"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(ValueError, match="width"):
             strength_measure(C, kind)
+        want = jstrength(JCSR.from_scipy(A, dtype=jnp.float64), kind, width=w)
+        np.testing.assert_allclose(strength_measure(C, kind, width=w).data.numpy(),
+                                   np.asarray(want.data), rtol=1e-11, atol=0)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
@@ -300,10 +307,16 @@ def test_lloyd_distance_matches_jax(hull_strength, distance):
 
 
 def test_lloyd_random_seeds_follow_the_generator(hull_strength):
+    """The generator is a jax.random key now: the seeds are
+    permutation(key, n)[:k], JAX's draw bit for bit."""
+    from mlamg_torch.utils import prng
+
     C = strength_measure(CSR.from_scipy(hull_strength, device=CPU), "abs")
-    runs = [tlloyd.lloyd_aggregation(C, ratio=0.1, maxiter=2,
-                                     generator=torch.Generator().manual_seed(s))
+    runs = [tlloyd.lloyd_aggregation(C, ratio=0.1, maxiter=2, key=prng.PRNGKey(s))
             for s in (1, 1, 2)]
     assert torch.equal(runs[0][2], runs[1][2]) and not torch.equal(runs[0][2], runs[2][2])
+    Cj = jstrength(JCSR.from_scipy(hull_strength, dtype=jnp.float32), "abs")
+    _, _, seeds_j = jlloyd.lloyd_aggregation(Cj, ratio=0.1, maxiter=2, key=jax.random.PRNGKey(1))
+    np.testing.assert_array_equal(runs[0][2].numpy(), np.asarray(seeds_j))
     assert runs[0][2].shape[0] == int(np.ceil(0.1 * hull_strength.shape[0]))
     assert int(runs[0][0].max()) < runs[0][2].shape[0]
