@@ -4,7 +4,9 @@
 :func:`hierarchy_from_numpy` the structured :class:`Hierarchy` from plain
 numpy/scipy data, exactly what ``np.asarray`` pulls out of the JAX
 package's hierarchies.  :func:`fullaggnet_from_params` loads a
-checkpoint's learned weights into the port's :class:`FullAggNet`.
+checkpoint's learned weights into the port's :class:`FullAggNet`, and
+:func:`params_from_fullaggnet` writes them back as the JAX package's
+parameter tree.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from mlamg_torch.mg.coarse import CoarseSolver
 from mlamg_torch.mg.cycle import Hierarchy
 from mlamg_torch.mg.factored import BilinearP2D, BoxAgg2D, FactoredSA
 from mlamg_torch.models.agg_interp import FullAggNet
+from mlamg_torch.models.gnn import Dense, LayerNorm
 from mlamg_torch.ops.dia import DIA
 
 
@@ -143,3 +146,34 @@ def fullaggnet_from_params(params: Mapping, net_config: Mapping, device=None,
         raise ValueError(f"fullaggnet_from_params: shapes differ for {bad}")
     net.load_state_dict(state)
     return net.to(device=dev, dtype=dtype).eval()
+
+
+def param_leaves(net) -> list:
+    """[(flax path, parameter, is_kernel)] of a module in flax's tree order
+    (the paths sorted, as ``jax.tree`` orders a dict's keys): a Dense
+    ``weight`` is the flax ``kernel`` (taken transposed), a LayerNorm
+    ``weight`` its ``scale``."""
+    out = []
+    for name, m in net.named_modules():
+        prefix = ("params", *name.split(".")) if name else ("params",)
+        if isinstance(m, Dense):
+            out.append((prefix + ("kernel",), m.weight, True))
+            if m.bias is not None:
+                out.append((prefix + ("bias",), m.bias, False))
+        elif isinstance(m, LayerNorm):
+            out += [(prefix + ("scale",), m.weight, False), (prefix + ("bias",), m.bias, False)]
+    return sorted(out, key=lambda leaf: leaf[0])
+
+
+def params_from_fullaggnet(net) -> dict:
+    """The JAX package's parameter tree ``{"params": {"AggNetM": ...,
+    "CNet": ..., "PNet": ...}}`` of numpy arrays, from a port module; the
+    inverse of :func:`fullaggnet_from_params`."""
+    tree: dict = {}
+    for path, p, is_kernel in param_leaves(net):
+        value = p.detach().cpu().numpy()
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = np.ascontiguousarray(value.T if is_kernel else value)
+    return tree

@@ -20,3 +20,13 @@ def topk_mask(x: torch.Tensor, k: int) -> torch.Tensor:
     """(n,) vector with 1.0 at the k largest entries of ``x``."""
     x = x.reshape(-1)
     return torch.zeros_like(x).index_fill_(0, topk_indices(x, k), 1.0)
+
+
+def soft_topk_mask(x: torch.Tensor, k: int, sigma: float = 1.0) -> torch.Tensor:
+    """Differentiable top-k: sigmoid((x - t) / sigma), with the threshold t
+    the midpoint of the k-th and (k+1)-th largest entries (the smallest
+    minus one when k = n), held constant under differentiation."""
+    x = x.reshape(-1)
+    vals = torch.sort(x.detach(), descending=True, stable=True).values
+    t = (vals[k - 1] + vals[k]) / 2.0 if k < x.shape[0] else vals[-1] - 1.0
+    return torch.sigmoid((x - t) / sigma)

@@ -39,7 +39,9 @@ class CoarseSolver:
             return CoarseSolver(torch.linalg.inv(A_H), empty, singular, method)
         if method != "lu":
             raise ValueError(f"unknown coarse method: {method}")
-        lu, piv = torch.linalg.lu_factor(A_H)
+        # no pivot check (it would wait for the card): a singular operator
+        # gives inf/NaN in the solve, as JAX's LU does
+        lu, piv, _ = torch.linalg.lu_factor_ex(A_H)
         return CoarseSolver(lu, piv, singular, method)
 
     def solve(self, r: torch.Tensor) -> torch.Tensor:

@@ -56,15 +56,21 @@ def smoothed_aggregation(A: CSR, agg_id: torch.Tensor, k: int, omega=None,
     return remap_columns(A, s_data, agg_id, k)
 
 
-def remap_columns(A: CSR, data: torch.Tensor, agg_id: torch.Tensor, k: int) -> CSR:
+def remap_columns(A: CSR, data: torch.Tensor, agg_id: torch.Tensor, k: int,
+                  n_real: int | None = None) -> CSR:
     """The (n, k) CSR with A's pattern, ``data`` as values and column j
     moved to agg_id[j]; entries whose column is unassigned (>= k) become
-    padding in place."""
+    padding in place.  With ``n_real`` (a grid padded to a shape bucket)
+    the kept entries of rows n_real and above hold 1.0."""
     n = A.shape[0]
     new_col = agg_id[A.col]
     keep = A.mask & (new_col < k)
+    data = torch.where(keep, data, torch.zeros_like(data))
+    if n_real is not None:
+        pad_row = keep & (A.row.clamp(max=n - 1) >= n_real)
+        data = torch.where(pad_row, torch.ones_like(data), data)
     return CSR(
-        torch.where(keep, data, torch.zeros_like(data)),
+        data,
         torch.where(keep, A.row, torch.full_like(A.row, n)),
         torch.where(keep, new_col, torch.zeros_like(new_col)),
         A.indptr, (n, k), A.nnz,

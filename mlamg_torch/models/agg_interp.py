@@ -8,8 +8,8 @@
     Bellman-Ford                                                -> aggregates
     interpolation smoother P-hat (PNet MPNN on 2-feature graph) -> P = P-hat Agg
 
-The shape-bucket padding of the GA's fitness (``pad``) and ``AggOnlyNet``
-are not ported yet.
+``pad = (n_real, k_real)`` runs a grid padded to a shape bucket (see
+:func:`pad_aware_scores`).  ``AggOnlyNet`` is not ported yet.
 """
 
 from __future__ import annotations
@@ -43,7 +43,7 @@ class MPNN(nn.Module):
             setattr(self, f"node_conv_{i}", NNConv(dim, dim, 2))
             setattr(self, f"edge_conv_{i}", EdgeModel(2 * dim + 2, dim, 2))
         self.node_conv_out = NNConv(dim, 1, 2)
-        self.edge_conv_out = EdgeModel(1 + 1 + 2, dim, 1)
+        self.edge_conv_out = EdgeModel(1 + 1 + 2, dim, 1, out_bias_init=0.1)
 
     def forward(self, g: GraphData):
         x, e, nm = g.x, g.edge_attr, g.node_mask
@@ -61,6 +61,24 @@ class MPNN(nn.Module):
         return x, e
 
 
+def pad_aware_scores(scores: torch.Tensor, k: int, pad=None) -> torch.Tensor:
+    """Scores of a grid padded to a shape bucket.
+
+    With ``pad = (n_real, k_real)`` the k-entry top-k must pick exactly
+    ``k_real`` real nodes: the other ``k - k_real`` slots go to the padding
+    nodes n_real .. n_real + k - k_real - 1 (score 1e30), whose aggregates
+    stay apart from the real block; the remaining padding nodes get -1e30.
+    Without ``pad`` the scores are returned as they are.
+    """
+    if pad is None:
+        return scores
+    n_real, k_real = pad
+    nid = torch.arange(scores.shape[0], device=scores.device)
+    big = torch.tensor(1e30, dtype=scores.dtype, device=scores.device)
+    pad_hot = (nid >= n_real) & (nid < n_real + (k - k_real))
+    return torch.where(nid < n_real, scores, torch.where(pad_hot, big, -big))
+
+
 class AggBinarizationLayer(nn.Module):
     """[InstanceNorm -> TAGConv -> ReLU -> MLP] x num_conv -> top-k.  The
     TAGConv edge weight is the graph's last edge feature."""
@@ -74,12 +92,12 @@ class AggBinarizationLayer(nn.Module):
             setattr(self, f"tag_{i}", TAGConv(in_dim if i == 0 else dim, dim))
             setattr(self, f"mlp_{i}", MLP(dim, [dim] * 4 + [head]))
 
-    def forward(self, g: GraphData, x: torch.Tensor, k: int):
+    def forward(self, g: GraphData, x: torch.Tensor, k: int, pad=None):
         ew = g.edge_attr[:, -1]
         for i in range(self.num_conv):
             x = getattr(self, f"tag_{i}")(g, self.norm(x, g.node_mask), ew)
             x = getattr(self, f"mlp_{i}")(torch.relu(x))
-        scores = x[:, 0]
+        scores = pad_aware_scores(x[:, 0], k, pad)
         return topk_mask(scores, k)[:, None], scores
 
 
@@ -93,10 +111,10 @@ class AggNet(nn.Module):
         for i in range(iterations):
             setattr(self, f"layer_{i}", AggBinarizationLayer(dim, num_conv))
 
-    def forward(self, g: GraphData, k: int):
+    def forward(self, g: GraphData, k: int, pad=None):
         x, scores = g.x, None
         for i in range(self.iterations):
-            x, scores = getattr(self, f"layer_{i}")(g, x, k)
+            x, scores = getattr(self, f"layer_{i}")(g, x, k, pad)
         return x[:, 0], scores
 
 
@@ -106,7 +124,8 @@ class FullAggNet(nn.Module):
     ``bf_width`` (the largest row degree of A's symmetric pattern) selects
     the pull-mode Bellman-Ford and sizes the graphs' ``in_ell``; None runs
     the push form.  ``rel_strength`` adds the row-relative strength edge
-    feature to the AggNet/CNet graph.
+    feature to the AggNet/CNet graph.  The parameters start at zero;
+    :func:`mlamg_torch.models.gnn.init_flax_` draws flax's initial values.
     """
 
     def __init__(self, dim: int = 64, num_conv: int = 2, iterations: int = 4,
@@ -122,14 +141,14 @@ class FullAggNet(nn.Module):
             return bellman_ford_pull(C, centers, width=self.bf_width)
         return bellman_ford(C, centers)
 
-    def basic_graph(self, A: CSR) -> GraphData:
-        return graph_from_matrix_basic(A, ell_width=self.bf_width,
+    def basic_graph(self, A: CSR, n_real: int | None = None) -> GraphData:
+        return graph_from_matrix_basic(A, n_real=n_real, ell_width=self.bf_width,
                                        rel_strength=self.rel_strength)
 
-    def _aggregate(self, A: CSR, k: int):
+    def _aggregate(self, A: CSR, k: int, pad=None):
         """(agg_id, C, centers, node_mask) of the learned aggregation."""
-        g = self.basic_graph(A)
-        node_mask, scores = self.AggNetM(g, k)
+        g = self.basic_graph(A, None if pad is None else pad[0])
+        node_mask, scores = self.AggNetM(g, k, pad)
         centers = topk_indices(scores, k)
         _, bf_edges = self.CNet(g)
         C = A.with_data(torch.where(A.mask, bf_edges[:, 0], torch.zeros_like(A.data)))
@@ -145,10 +164,18 @@ class FullAggNet(nn.Module):
         _, p_edges = self.PNet(graph_from_matrix(A, agg_id))
         return remap_columns(A, p_edges[:, 0], agg_id, k)  # P = P_hat Agg
 
-    def forward(self, A: CSR, k: int):
-        """Returns (agg_id, P (CSR n x k), C, centers, node_mask)."""
-        agg_id, C, centers, node_mask = self._aggregate(A, k)
-        _, p_edges = self.PNet(graph_from_matrix(A, agg_id, ell_width=self.bf_width))
-        P = remap_columns(A, p_edges[:, 0], agg_id, k)
+    def forward(self, A: CSR, k: int, pad=None):
+        """Returns (agg_id, P (CSR n x k), C, centers, node_mask).
+
+        ``pad = (n_real, k_real)``, host ints: A is a grid in its first
+        n_real rows plus identity padding rows; exactly k_real centers land
+        on real nodes (:func:`pad_aware_scores`), and the padding rows of P
+        hold 1.0, so the coarse operator stays block diagonal and
+        nonsingular."""
+        n_real = None if pad is None else pad[0]
+        agg_id, C, centers, node_mask = self._aggregate(A, k, pad)
+        g2 = graph_from_matrix(A, agg_id, n_real=n_real, ell_width=self.bf_width)
+        _, p_edges = self.PNet(g2)
+        P = remap_columns(A, p_edges[:, 0], agg_id, k, n_real=n_real)
         return agg_id, P, C, centers, node_mask
 

@@ -18,6 +18,7 @@ its products in input order, and a mean over nodes adds in
 
 from __future__ import annotations
 
+import math
 from typing import Sequence
 
 import torch
@@ -29,10 +30,12 @@ from mlamg_torch.ops.segment import ordered_sum, tree_sum
 
 class Dense(nn.Module):
     """flax ``nn.Dense``: x @ kernel + bias, the products added in input
-    order.  ``weight`` is (out, in), as in ``nn.Linear``."""
+    order.  ``weight`` is (out, in), as in ``nn.Linear``; ``bias_init`` is
+    the bias's initial value (see :func:`init_flax_`)."""
 
-    def __init__(self, d_in: int, d_out: int, bias: bool = True):
+    def __init__(self, d_in: int, d_out: int, bias: bool = True, bias_init: float = 0.0):
         super().__init__()
+        self.bias_init = bias_init
         self.weight = nn.Parameter(torch.zeros(d_out, d_in))
         self.bias = nn.Parameter(torch.zeros(d_out)) if bias else None
 
@@ -41,8 +44,9 @@ class Dense(nn.Module):
         return y if self.bias is None else y + self.bias
 
 
-def _dense(module: nn.Module, i: int, d_in: int, d_out: int, bias: bool = True) -> None:
-    setattr(module, f"Dense_{i}", Dense(d_in, d_out, bias=bias))
+def _dense(module: nn.Module, i: int, d_in: int, d_out: int, bias: bool = True,
+           bias_init: float = 0.0) -> None:
+    setattr(module, f"Dense_{i}", Dense(d_in, d_out, bias=bias, bias_init=bias_init))
 
 
 class MLP(nn.Module):
@@ -142,13 +146,14 @@ class TAGConv(nn.Module):
 
 class EdgeModel(nn.Module):
     """Edge MLP on concat(src_feat, dst_feat, edge_attr): Dense, ReLU,
-    LayerNorm, Dense."""
+    LayerNorm, Dense.  ``out_bias_init`` starts the last bias positive, so a
+    single-unit ReLU head is alive at initialisation."""
 
-    def __init__(self, in_dim: int, hid_dim: int, out_dim: int):
+    def __init__(self, in_dim: int, hid_dim: int, out_dim: int, out_bias_init: float = 0.0):
         super().__init__()
         _dense(self, 0, in_dim, hid_dim)
         self.LayerNorm_0 = LayerNorm(hid_dim)
-        _dense(self, 1, hid_dim, out_dim)
+        _dense(self, 1, hid_dim, out_dim, bias_init=out_bias_init)
 
     def forward(self, src_feat, dst_feat, edge_attr) -> torch.Tensor:
         h = torch.cat([src_feat, dst_feat, edge_attr], dim=1)
@@ -179,3 +184,26 @@ class NNConv(nn.Module):
         msg = ordered_sum(gather_src(g, x)[:, :, None] * W, 1)
         root = getattr(self, f"Dense_{self.n_edge}")(x)
         return root + scatter_to_dst(g, msg)
+
+
+LECUN_TRUNC = 0.87962566103423978  # std of the standard normal truncated to [-2, 2]
+
+
+@torch.no_grad()
+def init_flax_(net: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Flax's initial values, in place and by flax's rules (not its bits):
+    each Dense kernel ``lecun_normal`` (a standard normal truncated to
+    [-2, 2], scaled to variance 1/fan_in), each bias its ``bias_init``
+    (zero but for the EdgeModel heads'), each LayerNorm scale 1 and bias 0.
+    The draws come from ``generator`` (on the CPU), module by module."""
+    for m in net.modules():
+        if isinstance(m, Dense):
+            w = torch.empty(m.weight.shape, dtype=torch.float64)
+            nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
+            m.weight.copy_(w * (math.sqrt(1.0 / m.weight.shape[1]) / LECUN_TRUNC))
+            if m.bias is not None:
+                m.bias.fill_(m.bias_init)
+        elif isinstance(m, LayerNorm):
+            m.weight.fill_(1.0)
+            m.bias.fill_(0.0)
+    return net

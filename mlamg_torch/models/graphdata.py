@@ -58,16 +58,31 @@ def build_in_ell(row: torch.Tensor, col: torch.Tensor, n: int,
         raise ValueError(f"build_in_ell: {e}; recompute width with dataset_bf_width") from None
 
 
-def _node_init(n: int, dtype, device) -> torch.Tensor:
-    """Node feature 1/n."""
-    return torch.full((n, 1), 1.0 / n, dtype=dtype, device=device)
+def _in_ell(A: CSR, width: int | None) -> torch.Tensor:
+    """``build_in_ell`` of A's pattern; without a width, A's cached column
+    slots (the same table)."""
+    if width is None:
+        return A.col_slots
+    return build_in_ell(A.row, A.col, A.shape[0], width)
 
 
-def graph_from_matrix_basic(A: CSR, ell_width: int | None = None,
+def _node_init(n: int, n_real: int | None, dtype, device):
+    """(x, node_mask): node feature 1/n and no mask; with shape-bucket
+    padding (``n_real`` real nodes first), 1/n_real on the real nodes, 0 on
+    the padding nodes and the mask of the real ones, so the real nodes'
+    outputs match the unpadded graph's."""
+    if n_real is None:
+        return torch.full((n, 1), 1.0 / n, dtype=dtype, device=device), None
+    mask = torch.arange(n, device=device) < n_real
+    one = torch.tensor(1.0, dtype=dtype, device=device) / n_real
+    return torch.where(mask, one, torch.zeros_like(one))[:, None], mask
+
+
+def graph_from_matrix_basic(A: CSR, n_real: int | None = None, ell_width: int | None = None,
                             rel_strength: bool = False) -> GraphData:
     """Node features 1/n, edge feature |a_ij|; with ``rel_strength`` a
     second edge feature |a_ij| / max_j' |a_ij'| over the off-diagonal of
-    row i (0 on the diagonal)."""
+    row i (0 on the diagonal).  ``n_real``: see :func:`_node_init`."""
     n = A.shape[0]
     zero = torch.zeros_like(A.data)
     absa = torch.where(A.mask, A.data.abs(), zero)
@@ -80,20 +95,21 @@ def graph_from_matrix_basic(A: CSR, ell_width: int | None = None,
         attr = torch.stack([absa, rel], dim=1)
     else:
         attr = absa[:, None]
-    return GraphData(A.row, A.col, attr, _node_init(n, A.dtype, A.device), n,
-                     None, build_in_ell(A.row, A.col, n, ell_width))
+    x, mask = _node_init(n, n_real, A.dtype, A.device)
+    return GraphData(A.row, A.col, attr, x, n, mask, _in_ell(A, ell_width))
 
 
-def graph_from_matrix(A: CSR, agg_id: torch.Tensor, ell_width: int | None = None) -> GraphData:
+def graph_from_matrix(A: CSR, agg_id: torch.Tensor, n_real: int | None = None,
+                      ell_width: int | None = None) -> GraphData:
     """Two edge features: |a_ij| and cluster adjacency (0 = same aggregate,
-    1 = different)."""
+    1 = different).  ``n_real``: see :func:`_node_init`."""
     n = A.shape[0]
     rsafe = A.row.clamp(max=n - 1)
     same = agg_id[rsafe] == agg_id[A.col]
     attr = torch.stack([A.data.abs(), (~same).to(A.dtype)], dim=1)
     attr = torch.where(A.mask[:, None], attr, torch.zeros_like(attr))
-    return GraphData(A.row, A.col, attr, _node_init(n, A.dtype, A.device), n,
-                     None, build_in_ell(A.row, A.col, n, ell_width))
+    x, mask = _node_init(n, n_real, A.dtype, A.device)
+    return GraphData(A.row, A.col, attr, x, n, mask, _in_ell(A, ell_width))
 
 
 def gather_src(g: GraphData, x: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,5 @@
-"""Evaluation of learned and classical two-level AMG (counterpart of the
-evaluation half of ``mlamg_tpu/train.py``).
+"""Evaluation of learned and classical two-level AMG, and the shape
+buckets of training (counterpart of ``mlamg_tpu/train.py``).
 
 Every method reports the convergence factor of one two-level solve
 (:func:`measured_conv`): b = 0 from a fixed unit-norm x0, multicolor
@@ -10,6 +10,13 @@ as 1.0.  The baselines are Lloyd aggregation on the olson strength
 the learned method is a :class:`~mlamg_torch.models.agg_interp.FullAggNet`
 (:func:`evaluate_model_on_bundles`).  The random draws are the JAX
 package's bit for bit (:mod:`mlamg_torch.utils.prng`).
+
+Training groups its grids into shape buckets (:func:`make_buckets`): each
+grid padded with an identity block to its bucket's size, as the JAX
+package pads them, because padding changes the soft loss (its ridge and
+test vectors) and the order of the model's sums.  The JAX package
+evaluates a bucket as one vmapped program; here a bucket is a loop over
+its grids (:func:`make_population_fitness_bucketed`).
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ import torch
 
 from mlamg_torch.data.grid import Grid
 from mlamg_torch.device import resolve_device
+from mlamg_torch.ga.codec import assign_flat, flatten_params
 from mlamg_torch.graph.bellman_ford import bellman_ford, nearest_center_to_agg
 from mlamg_torch.graph.lloyd import _lloyd_core
 from mlamg_torch.graph.strength import strength_measure
@@ -46,11 +54,21 @@ class SolveOptions:
     use_error_norm: bool = False
 
 
+def _host_parts(g: Grid, alpha: float):
+    """(scipy A, k, x0, colours) of a grid, on the host."""
+    A = g.A.tocsr()
+    n = A.shape[0]
+    x0 = np.random.RandomState(0).randn(n)
+    x0 /= np.linalg.norm(x0)
+    return A, max(1, int(np.ceil(alpha * n))), x0, greedy_coloring(A).astype(np.int64)
+
+
 @dataclasses.dataclass
 class GridBundle:
     """A grid's system on the device, ready for evaluation: ``k =
     ceil(alpha n)`` aggregates, x0 (``RandomState(0)`` normal, unit norm),
-    the largest row degree and the greedy colouring."""
+    the largest row degree, the greedy colouring and the Lloyd reference
+    conv (set by ``compute_reference_convs``)."""
 
     A: CSR
     k: int
@@ -58,21 +76,20 @@ class GridBundle:
     width: int
     colors: torch.Tensor
     num_colors: int
+    ref_conv: float = 1.0
 
     @staticmethod
     def from_grid(g: Grid, alpha: float, dtype=torch.float32, device=None) -> "GridBundle":
-        dev = resolve_device(device)
-        A = g.A.tocsr()
-        n = A.shape[0]
-        k = max(1, int(np.ceil(alpha * n)))
-        x0 = np.random.RandomState(0).randn(n)
-        x0 /= np.linalg.norm(x0)
-        colors = greedy_coloring(A)
+        return GridBundle._from_host(_host_parts(g, alpha), dtype, resolve_device(device))
+
+    @staticmethod
+    def _from_host(parts, dtype, device) -> "GridBundle":
+        A, k, x0, colors = parts
         return GridBundle(
-            CSR.from_scipy(A, dtype=dtype, device=dev), k,
-            torch.from_numpy(x0).to(device=dev, dtype=dtype),
+            CSR.from_scipy(A, dtype=dtype, device=device), k,
+            torch.from_numpy(x0).to(device=device, dtype=dtype),
             int(np.diff(A.indptr).max()),
-            torch.from_numpy(colors.astype(np.int64)).to(dev),
+            torch.from_numpy(colors).to(device),
             int(colors.max()) + 1,
         )
 
@@ -151,3 +168,130 @@ def evaluate_model_on_bundles(net, bundles, opts: SolveOptions | None = None) ->
         _, P, _, _, _ = net(b.A, b.k)
         out.append(bundle_conv(b, P, opts))
     return np.asarray(out)
+
+
+@dataclasses.dataclass
+class BucketStack:
+    """The grids of one shape bucket, each padded to (n_pad, nnz_pad) with
+    identity rows.  The padding block is disconnected, so a padded grid's
+    real nodes give the unpadded results; ``n_real``/``k_real`` are host
+    ints, so padding costs no host sync."""
+
+    As: tuple  # per grid: CSR (n_pad, n_pad) with nnz_pad entries
+    x0: torch.Tensor  # (B, n_pad), zero on padding rows
+    n_real: tuple  # (B,) ints
+    k_real: tuple  # (B,) ints
+    k: int  # the bucket's aggregate count
+    idx: np.ndarray  # (B,) indices into the flat bundle list
+    colors: torch.Tensor  # (B, n_pad) greedy colouring (padding rows 0)
+    num_colors: int  # the bucket's largest colour count
+
+    def pad(self, j: int) -> tuple:
+        return self.n_real[j], self.k_real[j]
+
+
+def make_buckets(grids, alpha: float, dtype=torch.float32, step: int = 64, device=None):
+    """(flat GridBundles, [BucketStack]) from Grids.
+
+    Grids are grouped by n rounded up to ``step``; every grid of a bucket
+    is padded to one ``nnz_pad`` (the largest padded nnz, at least 128 and
+    a multiple of 128), and the bucket has ``k = ceil(alpha n_pad)``
+    aggregates, ``k - k_real`` of them pinned to padding nodes.  Padding is
+    built in numpy, one transfer per field and bucket.
+    """
+    import scipy.sparse as sp
+
+    dev = resolve_device(device)
+    host = [_host_parts(g, alpha) for g in grids]
+    bundles = [GridBundle._from_host(parts, dtype, dev) for parts in host]
+    groups: dict[int, list[int]] = {}
+    for i, (A, *_) in enumerate(host):
+        groups.setdefault(-(-A.shape[0] // step) * step, []).append(i)
+
+    buckets = []
+    for nb, idxs in sorted(groups.items()):
+        nnz_pad = max(max(int(host[i][0].nnz) + nb - host[i][0].shape[0] for i in idxs), 128)
+        nnz_pad = ((nnz_pad + 127) // 128) * 128
+        k_bucket = max(1, int(np.ceil(alpha * nb)))
+        B = len(idxs)
+        datas = np.zeros((B, nnz_pad), np.float64)
+        rows = np.full((B, nnz_pad), nb, np.int64)
+        cols = np.zeros((B, nnz_pad), np.int64)
+        indptrs = np.zeros((B, nb + 1), np.int64)
+        x0s = np.zeros((B, nb), np.float64)
+        colorss = np.zeros((B, nb), np.int64)
+        for j, i in enumerate(idxs):
+            A, k, x0, colors = host[i]
+            n = A.shape[0]
+            Ap = sp.block_diag([A, sp.eye(nb - n, format="csr")], format="csr") if nb > n else A.copy()
+            Ap.sort_indices()
+            nnz = int(Ap.nnz)
+            datas[j, :nnz] = Ap.data
+            cols[j, :nnz] = Ap.indices
+            rows[j, :nnz] = np.repeat(np.arange(nb), np.diff(Ap.indptr))
+            indptrs[j] = Ap.indptr
+            x0s[j, :n] = x0
+            colorss[j, :n] = colors
+            if not 0 <= k_bucket - k <= nb - n:
+                raise ValueError(f"make_buckets: the {k_bucket - k} padding centers of a grid "
+                                 f"with n {n} do not fit its bucket of {nb} (alpha {alpha})")
+        data_t = torch.from_numpy(datas).to(device=dev, dtype=dtype)
+        row_t, col_t, ptr_t = (torch.from_numpy(a).to(dev) for a in (rows, cols, indptrs))
+        buckets.append(BucketStack(
+            tuple(CSR(data_t[j], row_t[j], col_t[j], ptr_t[j], (nb, nb), nnz_pad) for j in range(B)),
+            torch.from_numpy(x0s).to(device=dev, dtype=dtype),
+            tuple(host[i][0].shape[0] for i in idxs), tuple(host[i][1] for i in idxs),
+            k_bucket, np.asarray(idxs),
+            torch.from_numpy(colorss).to(dev),
+            max(bundles[i].num_colors for i in idxs),
+        ))
+    return bundles, buckets
+
+
+@torch.no_grad()
+def bucketed_convs(net, buckets, opts: SolveOptions | None = None) -> np.ndarray:
+    """Per-grid conv factors of a FullAggNet's prolongator on the padded
+    grids, in bucket order (NaN counted as 1.0)."""
+    opts = opts or SolveOptions()
+    out = []
+    for b in buckets:
+        for j, A in enumerate(b.As):
+            _, P, _, _, _ = net(A, b.k, pad=b.pad(j))
+            out.append(measured_conv(A, P, b.x0[j], opts, colors=b.colors[j],
+                                     num_colors=b.num_colors))
+    return np.asarray(out)
+
+
+def make_population_fitness_bucketed(net, bundles, buckets, opts: SolveOptions | None = None,
+                                     fitness_metric: str = "mean_ratio"):
+    """fitness_func(population (M, W), generation) -> (M,) fitness of flat
+    weight vectors (:func:`mlamg_torch.ga.codec.flatten_params` order) on
+    the padded grids; the module's own weights are restored afterwards.
+
+    ``fitness_metric``: "mean_ratio" is 1 / mean_i(conv_i / ref_i) (the
+    reference trainer's), "ratio_of_means" is mean(ref) / mean(conv) (the
+    published tables' protocol); each capped at 1e9.  The JAX package maps
+    the population and the grids with ``vmap`` (and optionally over a
+    device mesh); here both are loops.
+    """
+    opts = opts or SolveOptions()
+    order = np.concatenate([b.idx for b in buckets])
+    ref = np.asarray([bundles[i].ref_conv for i in order])
+
+    def fitness_func(population, generation=0) -> np.ndarray:
+        keep = flatten_params(net)[0]
+        convs = []
+        try:
+            for vec in population:
+                assign_flat(net, vec)
+                convs.append(bucketed_convs(net, buckets, opts))
+        finally:
+            assign_flat(net, keep)
+        convs = np.where(np.isnan(convs), 1.0, np.asarray(convs))
+        if fitness_metric == "ratio_of_means":
+            rel = convs.mean(1) / ref.mean()
+        else:
+            rel = (convs / ref[None, :]).mean(1)
+        return 1.0 / np.maximum(rel, 1e-9)
+
+    return fitness_func

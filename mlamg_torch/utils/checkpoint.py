@@ -1,15 +1,45 @@
-"""Checkpoint reader (counterpart of ``mlamg_tpu/utils/checkpoint.py``
-:func:`load_checkpoint`).
+"""Checkpoints (counterpart of ``mlamg_tpu/utils/checkpoint.py``).
 
-A checkpoint is a pickle of plain dicts of numpy arrays: ``best_params``,
-``population``, ``fitness``, ``key``, ``generation`` and ``extra`` (with
-``net_config``).  Unpickling runs code, so load only checkpoints this
-project wrote.
+A checkpoint is a pickle of plain dicts of numpy arrays: ``generation``,
+``best_params`` (the JAX package's parameter tree, see
+:func:`mlamg_torch.convert.params_from_fullaggnet`), ``extra`` (with
+``net_config``), and the GA's ``population``, ``fitness`` and ``key``,
+which gradient training leaves None.  Either package reads the other's.  Unpickling runs code, so
+load only checkpoints this project wrote.
 """
 
 from __future__ import annotations
 
+import os
 import pickle
+
+import numpy as np
+
+
+def _to_host(tree):
+    if isinstance(tree, dict):
+        return {k: _to_host(v) for k, v in tree.items()}
+    if hasattr(tree, "detach"):
+        tree = tree.detach().cpu().numpy()
+    return np.asarray(tree)
+
+
+def save_checkpoint(path: str, *, generation: int, best_params, extra=None) -> None:
+    """Write a checkpoint: a temporary file renamed into place, so a reader
+    never sees half of one."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    payload = {
+        "generation": int(generation),
+        "best_params": _to_host(best_params),
+        "population": None,
+        "fitness": None,
+        "key": None,
+        "extra": extra or {},
+    }
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        pickle.dump(payload, f)
+    os.replace(tmp, path)
 
 
 def load_checkpoint(path: str) -> dict:

@@ -9,7 +9,8 @@ This module repeats those draws on the host in numpy, for jax's default
 
 - a key is a ``(2,)`` uint32 array (:func:`PRNGKey`);
 - :func:`split` and :func:`random_bits` hash the 64-bit iota of the output
-  shape, split into (hi, lo) uint32 words, with the key;
+  shape, split into (hi, lo) uint32 words, with the key; :func:`fold_in`
+  hashes the pair (0, data);
 - :func:`permutation` is jax's ``_shuffle``: ``ceil(3 ln n / ln(2^32-1))``
   rounds, each a stable sort on fresh 32-bit keys;
 - :func:`normal` is ``sqrt(2) * erf_inv(u)`` with ``u`` uniform on
@@ -64,6 +65,14 @@ def split(key: np.ndarray, num: int = 2) -> np.ndarray:
     """jax.random.split(key, num): (num, 2) uint32 keys."""
     b0, b1 = threefry2x32(key, *_iota_2x32(num))
     return np.stack([b0, b1], axis=1)
+
+
+def fold_in(key: np.ndarray, data: int) -> np.ndarray:
+    """jax.random.fold_in(key, data): the key hashed with the counter pair
+    (0, data mod 2^32)."""
+    b0, b1 = threefry2x32(key, np.zeros(1, np.uint32),
+                          np.array([int(data) & _MASK32], np.uint32))
+    return np.array([b0[0], b1[0]], np.uint32)
 
 
 def random_bits(key: np.ndarray, bit_width: int, shape) -> np.ndarray:

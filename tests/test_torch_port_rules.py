@@ -125,6 +125,23 @@ def test_evaluation_entry_points_default_to_cuda_and_raise_without_it(no_cuda, t
     assert (tmp_path / "eval_test_alpha0.1.pkl").exists()
 
 
+def test_training_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
+    from mlamg_torch.cli import pretrain_dataset, train_gradient
+    from mlamg_torch.data.grid import Grid
+    from mlamg_torch.train import make_buckets
+
+    data = str(REPO / "data_out" / "2d_iso")
+    grids = Grid.load_dir(str(REPO / "data_out" / "2d_iso" / "test"))[:2]
+    for call in (lambda: pretrain_dataset.main([data, "--epochs", "1", "--limit", "1"]),
+                 lambda: train_gradient.main([data, "--steps", "1", "--limit", "1"]),
+                 lambda: make_buckets(grids, 0.1),
+                 lambda: pretrain_dataset.build_targets(grids, 0.1, "olson")):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    _, buckets = make_buckets(grids, 0.1, device="cpu")
+    assert buckets[0].As[0].device.type == "cpu"
+
+
 def run_smoke(cwd: Path):
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
     return subprocess.run(
