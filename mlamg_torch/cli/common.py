@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 
@@ -9,6 +10,7 @@ import numpy as np
 import scipy.sparse as sp
 
 from mlamg_torch.data.grid import Grid
+from mlamg_torch.graph.strength import STRENGTH_MEASURES
 from mlamg_torch.train import lloyd_reference_conv
 
 
@@ -106,3 +108,84 @@ def compute_reference_convs(bundles, strength_measure: str, opts, grids=None,
             json.dump({"settings": settings, "convs": cache}, f)
         os.replace(tmp, write_path)
     return np.asarray([b.ref_conv for b in bundles])
+
+
+def add_training_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
+    """The GA trainer's flags, with the JAX package's names and defaults;
+    ``--device`` takes the place of ``--platform``, and the JAX-only
+    ``--compile-cache`` (XLA's compilation cache) has no counterpart."""
+    parser.add_argument("system", type=str, help="Problem folder with .grid files")
+    parser.add_argument("--max-generations", type=int, default=500)
+    parser.add_argument("--population-size", type=int, default=20)
+    parser.add_argument("--alpha", type=float, default=0.1, help="coarsening ratio")
+    parser.add_argument("--start-generation", type=int, default=0)
+    parser.add_argument("--start-model", type=str, default=None)
+    parser.add_argument("--resume", type=str, default=None,
+                        help="checkpoint to restore the whole GA state from "
+                             "(population, fitness, key, sigma, generation); "
+                             "--start-model only seeds the population around best_params")
+    parser.add_argument("--benchmark-only", action="store_true",
+                        help="measure the Lloyd reference convs, write them beside the "
+                             "checkpoints, then exit")
+    parser.add_argument("--strength-measure", default="olson", choices=STRENGTH_MEASURES,
+                        help="strength for the Lloyd benchmark; the reference's published "
+                             "baselines use 'olson'")
+    parser.add_argument("--greedy", default=False, type=parse_bool_str)
+    parser.add_argument("--batched", default=False, type=parse_bool_str)
+    parser.add_argument("--compute-test-loss", default=True, type=parse_bool_str)
+    parser.add_argument("--batch-size", type=int, default=64)
+    parser.add_argument("--loss-relative-measure", type=parse_bool_str, default=True)
+    parser.add_argument("--fitness-metric", default="mean_ratio",
+                        choices=["mean_ratio", "ratio_of_means"],
+                        help="mean_ratio = the reference trainer's fitness "
+                             "(1/mean(conv/ref)); ratio_of_means = the published tables' "
+                             "protocol mean(conv)/mean(ref)")
+    parser.add_argument("--adaptive-sigma", type=parse_bool_str, default=False,
+                        help="mutation scale follows the 1/5-success rule")
+    parser.add_argument("--mutate-subnets", type=str, default=None,
+                        help="comma-separated regexes of fold names; only matching "
+                             "subnets' weights mutate (e.g. 'AggNet,CNet')")
+    parser.add_argument("--mutation-sparsity", type=float, default=None,
+                        help="per-weight mutation probability instead of fold-wise masks")
+    parser.add_argument("--evaluate-bench-loss", type=parse_bool_str, default=True)
+    parser.add_argument("--pre-smooth", type=int, default=1)
+    parser.add_argument("--post-smooth", type=int, default=1)
+    parser.add_argument("--res-tol", type=float, default=1e-6)
+    parser.add_argument("--max-iter", type=int, default=300)
+    parser.add_argument("--smoother", default="multicolor_gs",
+                        choices=["jacobi", "multicolor_gs", "chebyshev"],
+                        help="two-level smoother inside the fitness measure")
+    parser.add_argument("--error-norm", type=parse_bool_str, default=True,
+                        help="stop on ||x|| (error norm, b = 0) like the reference trainer")
+    parser.add_argument("--dim", type=int, default=8, help="model hidden dim")
+    parser.add_argument("--num-conv", type=int, default=2)
+    parser.add_argument("--iterations", type=int, default=2)
+    parser.add_argument("--rel-strength", type=parse_bool_str, default=False,
+                        help="row-normalized strength edge feature for AggNet/CNet "
+                             "(changes parameter shapes)")
+    parser.add_argument("--bucketed", type=parse_bool_str, default=True,
+                        help="pad the grids to shape buckets (the JAX package's one "
+                             "program per bucket) instead of evaluating each unpadded")
+    parser.add_argument("--bucket-step", type=int, default=64,
+                        help="grids are padded to n rounded up to this step")
+    parser.add_argument("--mesh-pop", type=int, default=0,
+                        help="shard the population fitness over this many devices "
+                             "(0 = none; multi-GPU is not ported yet)")
+    parser.add_argument("--init-perturb", type=float, default=0.5,
+                        help="uniform perturbation when seeding the population")
+    parser.add_argument("--mutation-prob", type=float, default=1.0,
+                        help="per-fold mutation probability")
+    parser.add_argument("--fold-depth", type=int, default=2,
+                        help="parameter-path depth defining GA folds (2 = per subnet)")
+    parser.add_argument("--mutation-perturb", type=float, default=0.5,
+                        help="uniform mutation magnitude")
+    parser.add_argument("--crossover-prob", type=float, default=0.0)
+    parser.add_argument("--checkpoint-dir", type=str, default="models_chkpt")
+    parser.add_argument("--float64", default=False, type=parse_bool_str)
+    parser.add_argument("--test-loss-every", type=int, default=10,
+                        help="evaluate the test set every N generations")
+    parser.add_argument("--checkpoint-every", type=int, default=10,
+                        help="write a checkpoint every N generations")
+    parser.add_argument("--metrics-dir", type=str, default="runs")
+    parser.add_argument("--device", type=str, default=None, help="cuda (default) or cpu")
+    return parser

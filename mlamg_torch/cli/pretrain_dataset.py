@@ -157,7 +157,7 @@ def main(argv=None, dtype=torch.float32):
     net_config = dict(dim=args.dim, num_conv=args.num_conv, iterations=args.iterations,
                       bf_width=bf_width, rel_strength=args.rel_strength)
     net = FullAggNet(**net_config)
-    init_flax_(net, torch.Generator().manual_seed(args.seed))
+    init_flax_(net, prng.PRNGKey(args.seed))
     net.to(device=dev, dtype=dtype)
     opt = Adam(list(net.parameters()), args.lr)
 

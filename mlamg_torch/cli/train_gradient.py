@@ -210,7 +210,7 @@ class GradientRun:
 def prepare(args: argparse.Namespace, log=print, dtype=torch.float32) -> GradientRun:
     """Load the data into buckets, measure (or read) the reference convs,
     build the module (from ``--start-model``, whose net_config sets
-    ``bf_width`` and ``rel_strength``, or by flax's rules from ``--seed``),
+    ``bf_width`` and ``rel_strength``, or as flax's ``init(PRNGKey(seed))`` draws it),
     the test vectors, the optimiser and the fitness functions, in ``dtype``
     (the CLI's float32; float64 for comparisons across devices)."""
     dev = resolve_device(args.device)
@@ -255,7 +255,7 @@ def prepare(args: argparse.Namespace, log=print, dtype=torch.float32) -> Gradien
     if start_ck:
         net = fullaggnet_from_params(start_ck["best_params"], net_config, device=dev, dtype=dtype)
     else:
-        net = init_flax_(FullAggNet(**net_config), torch.Generator().manual_seed(args.seed))
+        net = init_flax_(FullAggNet(**net_config), prng.PRNGKey(args.seed))
         net.to(device=dev, dtype=dtype)
     vec, unravel = flatten_params(net)
     log(f"{vec.shape[0]} weights")

@@ -1,7 +1,7 @@
 """First-party P1 finite-element assembly (numpy, vectorized).
 
 Counterpart of ``mlamg_tpu/data/fem.py`` (the pieces the random-hull FEM
-problem family needs).  Pure numpy/scipy, so the assembled matrix is
+problem family and the structured Poisson problems need).  Pure numpy/scipy, so the assembled matrix is
 bit-identical to the JAX package's.
 """
 
@@ -11,6 +11,28 @@ from typing import Callable
 
 import numpy as np
 import scipy.sparse as sp
+
+
+def regular_triangle_mesh(nx: int, ny: int):
+    """Structured triangulation of the unit square: (vertices (n, 2)
+    float64, elements (m, 3) int64), each cell split into two triangles
+    (pyamg's gallery convention)."""
+    assert nx > 1 and ny > 1
+    X, Y = np.meshgrid(np.linspace(0.0, 1.0, nx), np.linspace(0.0, 1.0, ny))
+    v = np.column_stack([X.ravel(), Y.ravel()])
+    idx = np.arange(nx * ny).reshape(ny, nx)
+    ll, lr = idx[:-1, :-1].ravel(), idx[:-1, 1:].ravel()
+    ul, ur = idx[1:, :-1].ravel(), idx[1:, 1:].ravel()
+    e = np.vstack([np.column_stack([ll, lr, ul]), np.column_stack([lr, ur, ul])])
+    return v, e.astype(np.int64)
+
+
+def boundary_vertices_structured(vertices: np.ndarray) -> np.ndarray:
+    """The vertices on the unit square's boundary, by coordinate test."""
+    v = vertices
+    on = ((v[:, 0] == v[:, 0].min()) | (v[:, 0] == v[:, 0].max())
+          | (v[:, 1] == v[:, 1].min()) | (v[:, 1] == v[:, 1].max()))
+    return np.where(on)[0]
 
 
 def _kappa_at(kappa, cx, cy):

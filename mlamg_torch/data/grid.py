@@ -1,7 +1,8 @@
 """Problem container, ``.grid`` IO and the random-hull FEM generator.
 
 Counterpart of ``mlamg_tpu/data/grid.py`` (``Grid`` with ``save``,
-``load`` and ``load_dir``, ``mesh_2d_poisson_dirichlet`` and
+``load`` and ``load_dir``, ``structured_1d_poisson_dirichlet``,
+``mesh_2d_poisson_dirichlet``, ``structured_2d_poisson_dirichlet`` and
 ``random_2d_unstructured``).  Pure numpy/scipy, so a seed gives a matrix
 bit-identical to the JAX package's.  A ``.grid`` file is a bz2 pickle of
 ``{"A": (data, indices, indptr), "x", "extra"}``, read and written by both
@@ -61,6 +62,26 @@ class Grid:
         """Every ``.grid`` file of ``directory``, in file-name order."""
         return [Grid.load(os.path.join(directory, f))
                 for f in sorted(os.listdir(directory)) if ".grid" in f.lower()]
+
+    @staticmethod
+    def structured_1d_poisson_dirichlet(n: int, xdim=(0, 1)) -> "Grid":
+        """The 1D finite-difference Laplacian on n interior points, scaled
+        by h^-2."""
+        x = np.linspace(xdim[0], xdim[1], n + 2)[1:-1]
+        h = abs(x[1] - x[0])
+        A = (sp.eye(n) * 2 - sp.eye(n, k=-1) - sp.eye(n, k=1)) * (h ** -2.0)
+        return Grid(A.tocsr(), np.column_stack((x, np.zeros_like(x))))
+
+    @staticmethod
+    def structured_2d_poisson_dirichlet(n_pts_x: int, n_pts_y: int, epsilon: float = 1.0,
+                                        theta: float = 0.0) -> "Grid":
+        """P1 diffusion (anisotropy ``epsilon`` at angle ``theta``) on the
+        regular triangulation of the unit square, n_pts_x x n_pts_y
+        interior vertices, Dirichlet boundary eliminated."""
+        v, e = fem.regular_triangle_mesh(n_pts_x + 2, n_pts_y + 2)
+        return Grid.mesh_2d_poisson_dirichlet(
+            v, e, fem.boundary_vertices_structured(v), fem.anisotropic_kappa(epsilon, theta),
+            {"epsilon": epsilon, "theta": theta})
 
     @staticmethod
     def mesh_2d_poisson_dirichlet(

@@ -1,10 +1,13 @@
-"""A module's weights as one flat vector (counterpart of
-``mlamg_tpu/ga/codec.py`` :func:`flatten_params`).
+"""A module's weights as one flat vector, its GA folds and the GA's first
+population (counterpart of ``mlamg_tpu/ga/codec.py``).
 
 The order is ``jax.flatten_util.ravel_pytree``'s over the JAX package's
 parameter tree: leaves in flax's tree order (sorted paths), each raveled
 row major with Dense kernels as (in, out).  A vector, a noise draw on it
 or an optimiser state therefore lands on the same weights as in JAX.
+Every weight belongs to a *fold*, named by the first ``fold_depth`` keys
+of its path (depth 2: ``params/AggNetM``, ``params/CNet``,
+``params/PNet``); the GA's crossover and mutation flip one coin per fold.
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ import numpy as np
 import torch
 
 from mlamg_torch.convert import param_leaves
+from mlamg_torch.utils import prng
 
 
 def flatten_params(net):
@@ -64,3 +68,28 @@ def flat_grad(net) -> torch.Tensor:
     order (zero where a parameter has no gradient)."""
     return torch.cat([_flat(p.grad if p.grad is not None else torch.zeros_like(p), k)
                       for _, p, k in param_leaves(net)])
+
+
+def fold_ids(net, fold_depth: int = 2):
+    """(fold_ids, fold_names): a (W,) int32 fold per weight in
+    :func:`flatten_params`' order, and the fold names in order of first
+    appearance (the index is the fold id)."""
+    names: list[str] = []
+    index: dict[str, int] = {}
+    ids = []
+    for path, p, _ in param_leaves(net):
+        name = "/".join(path[:fold_depth])
+        if name not in index:
+            index[name] = len(names)
+            names.append(name)
+        ids.append(np.full(p.numel(), index[name], np.int32))
+    return np.concatenate(ids), names
+
+
+def init_population(key, vec, pop_size: int, perturb: float = 1.0) -> np.ndarray:
+    """(P, W) numpy population in ``vec``'s dtype: row 0 the weights
+    ``vec``, the rest ``vec`` plus ``prng.uniform(key, (P - 1, W), dtype,
+    -perturb, perturb)``, JAX's draw bit for bit."""
+    v = vec.detach().cpu().numpy() if isinstance(vec, torch.Tensor) else np.asarray(vec)
+    noise = prng.uniform(key, (pop_size - 1, v.shape[0]), v.dtype, -perturb, perturb)
+    return np.concatenate([v[None, :], v[None, :] + noise], axis=0)

@@ -18,9 +18,9 @@ its products in input order, and a mean over nodes adds in
 
 from __future__ import annotations
 
-import math
 from typing import Sequence
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -186,21 +186,24 @@ class NNConv(nn.Module):
         return root + scatter_to_dst(g, msg)
 
 
-LECUN_TRUNC = 0.87962566103423978  # std of the standard normal truncated to [-2, 2]
-
-
 @torch.no_grad()
-def init_flax_(net: nn.Module, generator: torch.Generator) -> nn.Module:
-    """Flax's initial values, in place and by flax's rules (not its bits):
-    each Dense kernel ``lecun_normal`` (a standard normal truncated to
-    [-2, 2], scaled to variance 1/fan_in), each bias its ``bias_init``
-    (zero but for the EdgeModel heads'), each LayerNorm scale 1 and bias 0.
-    The draws come from ``generator`` (on the CPU), module by module."""
-    for m in net.modules():
+def init_flax_(net: nn.Module, key) -> nn.Module:
+    """flax's ``init`` of the JAX package's model, in place, from ``key``
+    (:func:`mlamg_torch.utils.prng.PRNGKey`): each Dense kernel
+    ``lecun_normal`` drawn with the key flax derives for it
+    (:func:`~mlamg_torch.utils.prng.flax_param_key` of the module's path
+    and counter 1, the kernel being its first parameter), as (in, out) and
+    taken transposed; each bias its ``bias_init`` (zero but for the
+    EdgeModel heads'); each LayerNorm scale 1 and bias 0.  The draws are
+    numpy's, so they do not depend on the torch version or the device."""
+    from mlamg_torch.utils import prng
+
+    root = np.asarray(key, np.uint32)
+    for name, m in net.named_modules():
         if isinstance(m, Dense):
-            w = torch.empty(m.weight.shape, dtype=torch.float64)
-            nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
-            m.weight.copy_(w * (math.sqrt(1.0 / m.weight.shape[1]) / LECUN_TRUNC))
+            kernel = prng.lecun_normal(prng.flax_param_key(root, name.split("."), 1),
+                                       (m.weight.shape[1], m.weight.shape[0]))
+            m.weight.copy_(torch.from_numpy(kernel.T.copy()))
             if m.bias is not None:
                 m.bias.fill_(m.bias_init)
         elif isinstance(m, LayerNorm):

@@ -16,7 +16,9 @@ grid padded with an identity block to its bucket's size, as the JAX
 package pads them, because padding changes the soft loss (its ridge and
 test vectors) and the order of the model's sums.  The JAX package
 evaluates a bucket as one vmapped program; here a bucket is a loop over
-its grids (:func:`make_population_fitness_bucketed`).
+its grids (:func:`make_population_fitness_bucketed`).  The GA's fitness
+without buckets (:func:`make_population_fitness`) loops over the grids
+unpadded.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ from mlamg_torch.graph.strength import strength_measure
 from mlamg_torch.mg.cycle import twolevel_solve
 from mlamg_torch.mg.interp import sa_interpolation_dense
 from mlamg_torch.mg.smoothers import greedy_coloring
+from mlamg_torch.models.loss import numpy_dtype
 from mlamg_torch.ops.sparse import CSR
 from mlamg_torch.utils import prng
 
@@ -262,36 +265,86 @@ def bucketed_convs(net, buckets, opts: SolveOptions | None = None) -> np.ndarray
     return np.asarray(out)
 
 
+def population_convs(net, population, convs_of) -> np.ndarray:
+    """(M, G) conv factors: ``convs_of(net)`` with each row of
+    ``population`` (flat weight vectors in
+    :func:`mlamg_torch.ga.codec.flatten_params` order, numpy or torch)
+    written into ``net``; the module's own weights are restored
+    afterwards."""
+    keep = flatten_params(net)[0]
+    try:
+        rows = []
+        for vec in population:
+            assign_flat(net, torch.as_tensor(vec))
+            rows.append(convs_of(net))
+    finally:
+        assign_flat(net, keep)
+    return np.asarray(rows)
+
+
+def fitness_from_convs(convs, ref, dtype, loss_relative: bool = True,
+                       fitness_metric: str = "mean_ratio") -> np.ndarray:
+    """(M,) fitness of (M, G) conv factors against the grids' reference
+    convs, in ``dtype`` (the bundles'), as the JAX package computes it:
+    NaN counted as 1.0; "mean_ratio" is 1 / mean_i(conv_i / ref_i) (the
+    reference trainer's), "ratio_of_means" mean(ref) / mean(conv) (the
+    published tables' protocol); without ``loss_relative`` the reference
+    is 1; each capped at 1e9."""
+    t = np.dtype(dtype).type
+    convs = np.asarray(convs, t)
+    convs = np.where(np.isnan(convs), t(1.0), convs)
+    ref = np.asarray(ref, t)
+    if fitness_metric == "ratio_of_means":
+        rel = convs.mean(axis=1) / (ref.mean() if loss_relative else t(1.0))
+    else:
+        rel = (convs / ref[None, :] if loss_relative else convs).mean(axis=1)
+    return t(1.0) / np.maximum(rel, t(1e-9))
+
+
 def make_population_fitness_bucketed(net, bundles, buckets, opts: SolveOptions | None = None,
+                                     loss_relative: bool = True,
                                      fitness_metric: str = "mean_ratio"):
     """fitness_func(population (M, W), generation) -> (M,) fitness of flat
-    weight vectors (:func:`mlamg_torch.ga.codec.flatten_params` order) on
-    the padded grids; the module's own weights are restored afterwards.
-
-    ``fitness_metric``: "mean_ratio" is 1 / mean_i(conv_i / ref_i) (the
-    reference trainer's), "ratio_of_means" is mean(ref) / mean(conv) (the
-    published tables' protocol); each capped at 1e9.  The JAX package maps
-    the population and the grids with ``vmap`` (and optionally over a
-    device mesh); here both are loops.
-    """
+    weight vectors on the padded grids (:func:`population_convs`,
+    :func:`fitness_from_convs`); ``fitness_func.last_convs`` holds the
+    (M, G) convs of its last call, the grids in bucket order.  The JAX
+    package maps the population and the grids with ``vmap`` (and
+    optionally over a device mesh); here both are loops."""
     opts = opts or SolveOptions()
     order = np.concatenate([b.idx for b in buckets])
-    ref = np.asarray([bundles[i].ref_conv for i in order])
+    ref = [bundles[i].ref_conv for i in order]
+    dtype = numpy_dtype(buckets[0].x0.dtype)
 
     def fitness_func(population, generation=0) -> np.ndarray:
-        keep = flatten_params(net)[0]
-        convs = []
-        try:
-            for vec in population:
-                assign_flat(net, vec)
-                convs.append(bucketed_convs(net, buckets, opts))
-        finally:
-            assign_flat(net, keep)
-        convs = np.where(np.isnan(convs), 1.0, np.asarray(convs))
-        if fitness_metric == "ratio_of_means":
-            rel = convs.mean(1) / ref.mean()
+        convs = population_convs(net, population, lambda m: bucketed_convs(m, buckets, opts))
+        fitness_func.last_convs = convs
+        return fitness_from_convs(convs, ref, dtype, loss_relative, fitness_metric)
+
+    return fitness_func
+
+
+def make_population_fitness(net, bundles, opts: SolveOptions | None = None,
+                            loss_relative: bool = True, batch_size: int | None = None):
+    """fitness_func(population (M, W), generation) -> (M,) fitness
+    1 / mean over grids of conv / ref (:func:`fitness_from_convs`), each
+    grid unpadded.  With ``batch_size`` below the number of grids, each
+    call takes the minibatch ``RandomState(generation).choice(G,
+    batch_size, replace=False)``, as the JAX package does;
+    ``fitness_func.last_convs`` holds the convs of its last call."""
+    opts = opts or SolveOptions()
+    ref = np.asarray([b.ref_conv for b in bundles])
+    dtype = numpy_dtype(bundles[0].x0.dtype)
+
+    def fitness_func(population, generation=0) -> np.ndarray:
+        if batch_size is not None and batch_size < len(bundles):
+            batch = np.random.RandomState(generation).choice(len(bundles), size=batch_size,
+                                                             replace=False)
         else:
-            rel = (convs / ref[None, :]).mean(1)
-        return 1.0 / np.maximum(rel, 1e-9)
+            batch = np.arange(len(bundles))
+        chosen = [bundles[i] for i in batch]
+        convs = population_convs(net, population,
+                                 lambda m: evaluate_model_on_bundles(m, chosen, opts))
+        fitness_func.last_convs = convs
+        return fitness_from_convs(convs, ref[batch], dtype, loss_relative)
 
     return fitness_func

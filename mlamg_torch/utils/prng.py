@@ -99,9 +99,57 @@ def permutation(key: np.ndarray, n: int) -> np.ndarray:
     return x
 
 
+def _two_sum(a: np.ndarray, b: np.ndarray):
+    s = a + b
+    bb = s - a
+    return s, (a - (s - bb)) + (b - bb)
+
+
+def _two_prod(a: np.ndarray, b: np.ndarray):
+    """(p, e) with a * b = p + e exactly (Dekker's product, float64)."""
+    split = np.float64(134217729.0)  # 2^27 + 1
+    p = a * b
+
+    def halves(v):
+        c = split * v
+        hi = c - (c - v)
+        return hi, v - hi
+
+    ah, al = halves(a)
+    bh, bl = halves(b)
+    return p, ((ah * bh - p) + ah * bl + al * bh) + al * bl
+
+
+def fma(a: np.ndarray, b, c) -> np.ndarray:
+    """a * b + c rounded once, as XLA's CPU backend contracts a multiply
+    and an add.  float32: the product of two float32 is exact in float64,
+    and so is its sum with a float32 of comparable size, so one rounding
+    to float32 is the fused result.  float64: Boldo and Melquiond's
+    emulation ("Emulation of a FMA and correctly rounded sums: proved
+    algorithms using rounding to odd", IEEE TC 2008): an exact product and
+    sum, their low parts added with rounding to odd, then one rounding to
+    nearest."""
+    a = np.asarray(a)
+    t = a.dtype.type
+    if a.dtype == np.float32:
+        return (a.astype(np.float64) * np.float64(t(b)) + np.float64(t(c))).astype(np.float32)
+    if a.dtype != np.float64:
+        raise TypeError(f"fma: unsupported dtype {a.dtype}")
+    b = np.broadcast_to(np.float64(b), a.shape)
+    c = np.broadcast_to(np.float64(c), a.shape)
+    uh, ul = _two_prod(a, b)
+    th, tl = _two_sum(c, uh)
+    v, err = _two_sum(tl, ul)
+    # round v to odd: where the sum was inexact and v's last bit is even,
+    # step one ulp toward the exact value
+    even = (v.view(np.int64) & 1) == 0
+    v = np.where((err != 0) & even, np.nextafter(v, np.where(err > 0, np.inf, -np.inf)), v)
+    return th + v
+
+
 def uniform(key: np.ndarray, shape, dtype=np.float32, minval=0.0, maxval=1.0) -> np.ndarray:
     """jax.random.uniform: the mantissa of [1, 2) filled with random bits,
-    minus one, scaled to [minval, maxval)."""
+    minus one, scaled to [minval, maxval) with one fused multiply-add."""
     dtype = np.dtype(dtype)
     finfo = np.finfo(dtype)
     nbits = finfo.bits
@@ -110,7 +158,7 @@ def uniform(key: np.ndarray, shape, dtype=np.float32, minval=0.0, maxval=1.0) ->
     one_bits = np.array(1.0, dtype).view(uint)
     floats = ((bits >> uint(nbits - finfo.nmant)) | one_bits).view(dtype) - dtype.type(1.0)
     lo, hi = dtype.type(minval), dtype.type(maxval)
-    return np.maximum(lo, floats * (hi - lo) + lo)
+    return np.maximum(lo, fma(floats, hi - lo, lo))
 
 
 # Giles' coefficients as XLA lowers erf_inv, highest degree first.
@@ -151,9 +199,11 @@ _ERFINV_F64 = (
 
 
 def _horner(coeffs, w: np.ndarray) -> np.ndarray:
+    """The polynomial by Horner's rule, each step one fused multiply-add
+    as XLA's CPU backend contracts it."""
     p = np.full_like(w, coeffs[0])
     for c in coeffs[1:]:
-        p = w.dtype.type(c) + p * w
+        p = fma(p, w, w.dtype.type(c))
     return p
 
 
@@ -182,3 +232,80 @@ def normal(key: np.ndarray, shape, dtype=np.float32) -> np.ndarray:
     lo = np.nextafter(dtype.type(-1.0), dtype.type(0.0))
     u = uniform(key, shape, dtype, lo, 1.0)
     return dtype.type(np.sqrt(2)) * erf_inv(u)
+
+
+# XLA's float32 erf(-2/sqrt(2)) and erf(2/sqrt(2)): the bounds of the
+# uniform draw of truncated_normal(-2, 2) (tests recompute them with JAX)
+ERF_NEG_SQRT2_F32 = np.float32(-0.9544997)
+ERF_POS_SQRT2_F32 = np.float32(0.9544997)
+
+
+def truncated_normal_2(key: np.ndarray, shape) -> np.ndarray:
+    """jax.random.truncated_normal(key, -2, 2, shape, float32): u uniform
+    on (erf(-sqrt 2), erf(sqrt 2)), sqrt(2) erf_inv(u), clipped to the
+    float32 neighbours of -2 and 2 inside the interval."""
+    f32 = np.float32
+    u = uniform(key, shape, f32, ERF_NEG_SQRT2_F32, ERF_POS_SQRT2_F32)
+    out = f32(np.sqrt(2)) * erf_inv(u)
+    return np.clip(out, np.nextafter(f32(-2), f32(np.inf)), np.nextafter(f32(2), f32(-np.inf)))
+
+
+LECUN_TRUNC = 0.87962566103423978  # std of the standard normal truncated to [-2, 2]
+
+
+def lecun_normal(key: np.ndarray, shape) -> np.ndarray:
+    """jax.nn.initializers.lecun_normal()(key, shape, float32) of a Dense
+    kernel (in, out): truncated_normal_2 times sqrt(1 / in) / 0.8796...,
+    each factor rounded to float32 as JAX rounds it."""
+    f32 = np.float32
+    stddev = np.sqrt(f32(1.0 / shape[0])) / f32(LECUN_TRUNC)
+    return truncated_normal_2(key, shape) * stddev
+
+
+def flax_param_key(root: np.ndarray, scope_path, counter: int) -> np.ndarray:
+    """The key flax's ``init`` hands the ``counter``-th parameter (1-based,
+    in the order the module creates them) of the module at ``scope_path``
+    (module names below the root): the SHA-1 of the names and the counter
+    (big-endian, no leading zero bytes) concatenated without separators
+    (flax's ``flax_fix_rng_separator`` is off by default), its first 4
+    bytes big-endian folded into the root key."""
+    import hashlib
+
+    m = hashlib.sha1()
+    for name in scope_path:
+        m.update(str(name).encode("utf-8"))
+    m.update(int(counter).to_bytes((int(counter).bit_length() + 7) // 8, byteorder="big"))
+    return fold_in(root, int.from_bytes(m.digest()[:4], byteorder="big"))
+
+
+def bernoulli(key: np.ndarray, p: float, shape, dtype=np.float64) -> np.ndarray:
+    """jax.random.bernoulli(key, p, shape) ('low' mode): uniform < p, the
+    uniform drawn in ``dtype``, p's type in JAX (a Python float is float64
+    with 64-bit mode on, float32 without)."""
+    return uniform(key, shape, dtype) < np.dtype(dtype).type(p)
+
+
+def rademacher(key: np.ndarray, shape, dtype=np.int64, p_dtype=np.float64) -> np.ndarray:
+    """jax.random.rademacher(key, shape, dtype): 2 bernoulli(key, 0.5) - 1."""
+    b = bernoulli(key, 0.5, shape, p_dtype).astype(dtype)
+    return (2 * b - 1).astype(dtype)
+
+
+def randint(key: np.ndarray, shape, minval: int, maxval: int, dtype=np.int64) -> np.ndarray:
+    """jax.random.randint(key, shape, minval, maxval, dtype) for 32- and
+    64-bit integers: two words of random bits (from the two halves of
+    ``split(key)``) reduced modulo the span, high word times 2^nbits mod
+    span plus low word, in unsigned arithmetic."""
+    dtype = np.dtype(dtype)
+    nbits = dtype.itemsize * 8
+    if nbits not in (32, 64):
+        raise ValueError(f"randint: {dtype} is not a 32- or 64-bit integer type")
+    uint = np.uint32 if nbits == 32 else np.uint64
+    k1, k2 = split(key)
+    higher, lower = random_bits(k1, nbits, shape), random_bits(k2, nbits, shape)
+    span = uint(maxval - minval) if maxval > minval else uint(1)
+    multiplier = uint(2 ** (nbits // 2)) % span
+    multiplier = uint((int(multiplier) * int(multiplier)) % (1 << nbits)) % span
+    with np.errstate(over="ignore"):
+        offset = ((higher % span) * multiplier + (lower % span)) % span
+    return (dtype.type(minval) + offset.astype(dtype)).astype(dtype)

@@ -126,7 +126,7 @@ def test_evaluation_entry_points_default_to_cuda_and_raise_without_it(no_cuda, t
 
 
 def test_training_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
-    from mlamg_torch.cli import pretrain_dataset, train_gradient
+    from mlamg_torch.cli import pretrain_dataset, train_dataset, train_gradient, train_one_sample
     from mlamg_torch.data.grid import Grid
     from mlamg_torch.train import make_buckets
 
@@ -134,6 +134,8 @@ def test_training_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
     grids = Grid.load_dir(str(REPO / "data_out" / "2d_iso" / "test"))[:2]
     for call in (lambda: pretrain_dataset.main([data, "--epochs", "1", "--limit", "1"]),
                  lambda: train_gradient.main([data, "--steps", "1", "--limit", "1"]),
+                 lambda: train_dataset.main([data, "--max-generations", "1"]),
+                 lambda: train_one_sample.main(["--n", "4", "--max-generations", "1"]),
                  lambda: make_buckets(grids, 0.1),
                  lambda: pretrain_dataset.build_targets(grids, 0.1, "olson")):
         with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -1,8 +1,9 @@
 """``mlamg_torch.utils.prng`` against ``jax.random`` (threefry2x32,
 partitionable mode): keys, splits and bits bit for bit, ``permutation`` for
-every grid size the repository's datasets hold, ``uniform`` bit for bit,
-and ``erf_inv``/``normal`` within a few ulps (XLA's ``log1p`` and its
-contraction of the polynomial differ from numpy's)."""
+every grid size the repository's datasets hold, ``uniform`` bit for bit
+(with XLA's fused multiply-add), the truncated normal's bounds and flax's
+parameter keys bit for bit, and ``erf_inv``/``normal``/``lecun_normal``
+within a few ulps (XLA's CPU ``log1p`` is its own, not numpy's)."""
 
 import os
 
@@ -107,3 +108,83 @@ def test_normal_within_a_few_ulps_of_jax(dtype):
         gap = max(gap, ulp_gap(got, want))
     print(f"normal {dtype.__name__}: largest gap {gap} ulp")
     assert gap <= NORMAL_ULP_GAP[dtype]
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_uniform_with_any_bounds_matches_jax(dtype):
+    """XLA contracts ``floats * (max - min) + min`` into one fused
+    multiply-add; bounds whose difference is not a power of two show it."""
+    for seed, (lo, hi) in enumerate([(-0.05, 0.05), (-0.5, 0.5), (0.3, 7.1), (-1e-3, 2.0)]):
+        want = jax.random.uniform(jax.random.PRNGKey(seed), (50_000,), dtype, lo, hi)
+        np.testing.assert_array_equal(prng.uniform(prng.PRNGKey(seed), (50_000,), dtype, lo, hi),
+                                      np.asarray(want))
+
+
+def test_truncated_normal_bounds_match_jax():
+    """The float32 literals of erf(-+2 / sqrt 2) are XLA's."""
+    from jax._src.lax import special
+
+    sqrt2 = np.float32(np.sqrt(2))
+    for bound, want in ((-2, prng.ERF_NEG_SQRT2_F32), (2, prng.ERF_POS_SQRT2_F32)):
+        got = np.asarray(special.erf(jnp.float32(bound) / sqrt2))
+        assert got.dtype == np.float32 and got.view(np.uint32) == want.view(np.uint32)
+
+
+def test_lecun_normal_within_a_few_ulps_of_jax():
+    """jax.nn.initializers.lecun_normal on Dense kernel shapes: inside the
+    truncation, within erf_inv's ulps (scaled by two multiplications) and
+    equal for almost all values."""
+    unequal = total = 0
+    for seed in range(6):
+        for shape in [(1, 4), (4, 16), (16, 64), (17, 8), (64, 1), (300, 300)]:
+            want = np.asarray(jax.nn.initializers.lecun_normal()(
+                jax.random.PRNGKey(seed), shape, jnp.float32))
+            got = prng.lecun_normal(prng.PRNGKey(seed), shape)
+            assert got.dtype == np.float32 and got.shape == shape
+            assert ulp_gap(got, want) <= 4
+            unequal += int((got != want).sum())
+            total += got.size
+    print(f"lecun_normal: {unequal} of {total} unequal")
+    assert unequal <= 0.02 * total
+
+
+@pytest.mark.parametrize("seed", [0, 3])
+def test_flax_param_key_matches_flax(seed):
+    """The key flax's init hands a parameter: a module that records the
+    key its initialiser receives, nested two levels deep."""
+    import flax.linen as nn
+
+    seen = {}
+
+    def record(name):
+        def init(key, shape, dtype=jnp.float32):
+            seen[name] = np.asarray(jax.random.key_data(key) if jnp.issubdtype(
+                key.dtype, jax.dtypes.prng_key) else key)
+            return jnp.zeros(shape, dtype)
+        return init
+
+    class Leaf(nn.Module):
+        @nn.compact
+        def __call__(self, x):
+            a = self.param("a", record(self.name + "/a"), (2,))
+            b = self.param("b", record(self.name + "/b"), (2,))
+            return x + a + b
+
+    class Mid(nn.Module):
+        @nn.compact
+        def __call__(self, x):
+            return Leaf(name="Dense_0")(x) + Leaf(name="LayerNorm_12")(x)
+
+    class Top(nn.Module):
+        def setup(self):
+            self.AggNetM = Mid()
+
+        def __call__(self, x):
+            return self.AggNetM(x)
+
+    Top().init(jax.random.PRNGKey(seed), jnp.zeros(2))
+    root = prng.PRNGKey(seed)
+    for leaf in ("Dense_0", "LayerNorm_12"):
+        for counter, name in ((1, "a"), (2, "b")):
+            np.testing.assert_array_equal(
+                prng.flax_param_key(root, ("AggNetM", leaf), counter), seen[f"{leaf}/{name}"])

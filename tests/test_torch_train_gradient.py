@@ -7,7 +7,7 @@ one ``train_gradient`` step with weight noise, and both CLIs end to end
 The JAX model runs op by op (no ``jax.jit``): the trained FullAggNet
 amplifies rounding, so only the op-by-op JAX program is the port's
 reference (``tests/test_torch_models.py``).  The training steps start from
-weights drawn by flax's rules (``init_flax_``).
+weights drawn as flax's init draws them (``init_flax_``).
 """
 
 import dataclasses
@@ -88,8 +88,8 @@ def r5():
 
 @pytest.fixture(scope="module")
 def fresh():
-    """Weights drawn by flax's rules at seed 0: (JAX params, port net)."""
-    net = init_flax_(FullAggNet(**CONFIG), torch.Generator().manual_seed(0)).to(F64)
+    """Weights drawn as flax's init draws them at seed 0: (JAX params, port net)."""
+    net = init_flax_(FullAggNet(**CONFIG), prng.PRNGKey(0)).to(F64)
     return jax.tree.map(jnp.asarray, params_from_fullaggnet(net)), net
 
 
