@@ -124,9 +124,40 @@ Phases (each prints one JSON line; any failure exits non-zero):
    fitness on the larger bucket and a torch.profiler trace of it; the
    phase must finish within 150 s.
 
+11. ns, in a fresh process: the Navier-Stokes deployment through
+   ``mlamg_torch.cli.solve_ns.main`` on the card in float32, at the JAX
+   CLI's problems at the size of the reference's unsteady-cylflow demo:
+   the lid-driven cavity at n 128 (n_u 32,512, n_p 16,384) with each
+   Schur preconditioner (pcdr, sa, mlamg with ``runs_cf_interp/cf_best.ckpt``)
+   and the cylinder at h 0.01 (n_u 17,410, n_p 9,250) with pcdr, Re 100,
+   dt 0.1, tol 1e-6, cut to 3 time steps.  Checks every step: FGMRES
+   stopped before its 600 iterations, and the float64 scipy residual of
+   the saddle system over |b| is within a factor 10 of FGMRES's estimate
+   and at most 10 x tol.  Before that, ``train_cf_interp``'s pressure
+   solves on the card in its float64 (pinned pressure Laplacians of
+   cavities n 14, 16, 20, five right-hand sides, learned against the
+   classical fallback: means within 0.5 of ``runs_cf_interp/cf_interp.json``,
+   learned below classical; float32 printed) and its Schur round trip
+   (within 2 iterations, float64 residual below 1e-5), and each Schur
+   preconditioner's apply on the card against the CPU in float64 where it
+   is well posed (the pinned cavity-14 Laplacian; PCDR on that system),
+   within 1e-10.  After it, cavity
+   n 32, 2 steps, each preconditioner on the card and on the CPU (a
+   worker): in float64 equal iterations and solutions (velocity and
+   mean-free pressure) within 1e-9 (pcdr) or 1e-6 (sa, mlamg, whose
+   coarse LU of the unpinned Laplacian is exactly singular); in float32
+   pcdr within 3 iterations and 1e-5, sa and mlamg only converged with
+   a float64 residual within 10 x tol on both (their float32 iteration
+   counts are set by rounding).  Prints setup seconds with the dense LUs
+   apart, iterations and seconds per step, ms per FGMRES iteration (CUDA
+   events) and a torch.profiler trace of one cavity-128 pcdr FGMRES
+   iteration; 0 launches of either kernel; the phase must finish within
+   150 s.
+
 Then one line ``{"kernels": [...]}`` with each kernel's launches on its
-main path (``launches_eval``, ``launches_train``, ``launches_ga``: on the
-evaluation's, training's and the GA's, 0), its largest error
+main path (``launches_eval``, ``launches_train``, ``launches_ga``,
+``launches_ns``: on the evaluation's, training's, the GA's and the
+Navier-Stokes path, 0), its largest error
 against the plain version over every check, its time, the plain version's
 and the library call's time, and its bound (``well_spmv``: from the stored
 nonzeros, ``bound_ell_ms`` counts the ELL slots and ``bound_sliced_ms`` the
@@ -175,7 +206,12 @@ EVAL_RUNS = (
      "results/eval_2d_aniso_test_c/eval_test_alpha0.1.json"),
 )
 EVAL_METHODS = ("lloyd", "random", "ml", "ml_agg_only", "ml_int_only")
-EVAL_MEAN_TOL, EVAL_CPU_TOL, EVAL_SECONDS = 0.01, 0.02, 90.0
+# card against CPU, per grid: sound runs read at most 1.13e-7 (evaluation,
+# weights moved 1e-3 over seeds 0-4) and 1.67e-6 (GA generation 0, five
+# populations); moving the card's weights by 1e-6 moved the ML convs 0.061,
+# a GA population by 1e-5 0.271 (scripts/eval_cpu_spread.py on an H100,
+# PERF.md §6)
+EVAL_MEAN_TOL, EVAL_CPU_TOL, EVAL_SECONDS = 0.01, 1e-4, 90.0
 # gradient training: scripts/repro_iso_r5.sh's recipe, 2 of its 600 steps
 TRAIN_DATA, TRAIN_START = "data_out/2d_iso", "runs_iso_r5/grad_best.ckpt"
 TRAIN_ARGS = ("--steps", "600", "--bucket-step", "128", "--eval-every", "20",
@@ -193,6 +229,41 @@ GA_ARGS = ("--population-size", "6", "--max-generations", "1", "--start-model", 
            "--adaptive-sigma", "true", "--fold-depth", "2", "--max-iter", "75",
            "--error-norm", "false", "--test-loss-every", "5", "--checkpoint-every", "5")
 GA_FOLDS, GA_CPU_GRIDS, GA_SECONDS = 3, 12, 150.0
+# the Navier-Stokes deployment (solve_ns): the JAX CLI's problems at the sizes
+# of the reference's unsteady-cylflow demo, float32, cut to 3 time steps
+NS_CKPT, NS_CF_JSON = "runs_cf_interp/cf_best.ckpt", "runs_cf_interp/cf_interp.json"
+NS_STEP = ("--re", "100", "--dt", "0.1", "--steps", "3", "--tol", "1e-6")
+NS_FULL = {
+    "cavity128_pcdr": ("--n", "128", "--schur-pc", "pcdr"),
+    "cavity128_sa": ("--n", "128", "--schur-pc", "sa"),
+    "cavity128_mlamg": ("--n", "128", "--schur-pc", "mlamg", "--pnet-model", NS_CKPT),
+    "cylinder001_pcdr": ("--problem", "cylinder", "--h", "0.01", "--schur-pc", "pcdr"),
+}
+NS_TOL, NS_MAX_ITERS = 1e-6, 600  # solve_ns's FGMRES: tol, restart 30 x 20 restarts
+# card against CPU: cavity n 32, 2 steps, each Schur preconditioner
+NS_SMALL = {pc: ("--n", "32", "--steps", "2", "--schur-pc", pc) + (
+    ("--pnet-model", NS_CKPT) if pc == "mlamg" else ()) for pc in ("pcdr", "sa", "mlamg")}
+# train_cf_interp's pressure solves: learned and classical means within 0.5
+# of its JSON; the Schur round trip within 2 iterations, float64 residual
+NS_MEAN_TOL, NS_SCHUR_ITER_TOL, NS_SCHUR_RES = 0.5, 2, 1e-5
+# the float64 scipy residual of every full-width step within a factor 10 of
+# FGMRES's own estimate, and at most 10x the tolerance
+NS_RES_FACTOR = 10.0
+# Card against CPU at cavity n 32 (scripts/ns_float32_spread.py on an H100,
+# seeds 0-4, and the ns phase; PERF.md §6).  float64: pcdr read <= 1e-12 and
+# equal iterations; sa and mlamg, whose coarse LU of the unpinned Laplacian
+# is exactly singular, read up to 4.5e-7 with equal iterations (the bound
+# catches a run that fails, not a smoother defect: mlamg with Jacobi weight
+# 0.6 read 1.4e-7; the pinned applies below catch that).  float32: pcdr read
+# <= 2 iterations and 2.8e-6 apart; sa and mlamg 40 against 151 iterations
+# (rounding sets them), so only their convergence is held.  The cylinder
+# PCDR with C dropped on the card fails every bound (NaN after 571).
+NS_F64_RTOL, NS_SINGULAR_RTOL = 1e-9, 1e-6
+NS_F32_ITER_BAND, NS_F32_RTOL = 3, 1e-5
+# each Schur preconditioner's apply on the pinned cavity-14 Laplacian (PCDR
+# on the cavity-14 system), card against CPU in float64
+NS_APPLY_RTOL = 1e-10
+NS_SECONDS = 150.0
 # The trained model amplifies rounding in the backward as in the forward: in
 # float32 PNet's gradient on the card differs from the CPU's by ~2e-3 of its
 # size (1.89e-3 outside the NNConv root Dense on an H100, PERF.md §6).
@@ -1596,6 +1667,232 @@ def _ga_phase(out: dict) -> tuple[dict, dict]:
     return out, launches
 
 
+def _pinned(A):
+    """A with dof 0 pinned: ``train_cf_interp``'s pressure Laplacian."""
+    import scipy.sparse as sp
+
+    A = A.tolil()
+    A[0, :] = 0.0
+    A[:, 0] = 0.0
+    A[0, 0] = 1.0
+    return sp.csr_matrix(A)
+
+
+def _ns_small_runs(device: str, float64: bool) -> dict:
+    """NS_SMALL through ``solve_ns.main`` on ``device``: per run n_u and,
+    per step, the iterations, the float64 residual over |b| and the
+    solution."""
+    from mlamg_torch.cli import solve_ns
+
+    out = {}
+    for pc, args in NS_SMALL.items():
+        argv = [*args, "--device", device] + (["--float64"] if float64 else [])
+        r = solve_ns.main(argv, log=lambda *_: None)
+        out[pc] = dict(iters=[st["iters"] for st in r["steps"]],
+                       res=[st["res"] / np.linalg.norm(st["b"].astype(np.float64))
+                            for st in r["steps"]],
+                       x=[st["x"].astype(np.float64) for st in r["steps"]],
+                       n_u=r["system"].n_u)
+    return out
+
+
+def _ns_reference_cpu() -> dict:
+    """The card-against-CPU runs of the ns phase on the CPU (a worker)."""
+    _cpu_worker_setup()
+    t0 = time.time()
+    out = {"f64": _ns_small_runs("cpu", True), "f32": _ns_small_runs("cpu", False)}
+    out["seconds"] = time.time() - t0
+    return out
+
+
+def _flow_gap(a, b, n_u: int) -> float:
+    """max |a - b| / max |b| over the velocity and the mean-free pressure
+    (an enclosed flow fixes the pressure up to a constant)."""
+    def canon(x):
+        return np.concatenate([x[:n_u], x[n_u:] - x[n_u:].mean()])
+
+    a, b = canon(a), canon(b)
+    return float(np.abs(a - b).max() / np.abs(b).max())
+
+
+def _ns_card_vs_cpu(card: dict, cpu: dict, bounds: dict) -> tuple[dict, list]:
+    """Per preconditioner: both devices' iterations and float64 residuals
+    per step and the largest solution gap.  ``bounds[pc]`` is (iteration
+    band, solution rtol), or None where only convergence is held: each
+    step below NS_MAX_ITERS with a float64 residual within NS_RES_FACTOR x
+    tol on both devices.  Returns the readings and the failed checks."""
+    out, failed = {}, []
+    for pc in NS_SMALL:
+        a, b = card[pc], cpu[pc]
+        gap = max(_flow_gap(x, y, a["n_u"]) for x, y in zip(a["x"], b["x"]))
+        out[pc] = {"iters_card": a["iters"], "iters_cpu": b["iters"], "gap": gap,
+                   "res_card": a["res"], "res_cpu": b["res"]}
+        ok = all(i < NS_MAX_ITERS for i in a["iters"] + b["iters"]) and all(
+            r <= NS_RES_FACTOR * NS_TOL for r in a["res"] + b["res"])
+        if bounds[pc] is not None:
+            band, rtol = bounds[pc]
+            ok = ok and gap <= rtol and all(
+                abs(i - j) <= band for i, j in zip(a["iters"], b["iters"]))
+        if not ok:
+            failed.append(f"{pc}: {out[pc]}")
+    return out, failed
+
+
+def ns_phase() -> tuple[dict, dict]:
+    """The Navier-Stokes deployment (phase 11 of the module docstring).
+    Returns the phase's line and the CUDA kernels' launches on its path; a
+    failed check prints what the phase measured so far to stderr."""
+    out: dict = {"phase": "ns"}
+    try:
+        return _ns_phase(out)
+    except SystemExit:
+        print(json.dumps(out, default=str), file=sys.stderr, flush=True)
+        raise
+
+
+def _ns_phase(out: dict) -> tuple[dict, dict]:
+    import torch
+    from mlamg_torch.cli import solve_ns
+    from mlamg_torch.data.stokes import lid_driven_cavity
+    from mlamg_torch.deploy import LearnedAMGPreconditioner, Options, SchurFieldsplitSolver
+    from mlamg_torch.deploy.fieldsplit import _CallableOp
+    from mlamg_torch.mg.krylov import fgmres
+    from mlamg_torch.ops.unstructured import LAUNCHES
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_phase = time.time()
+    with open(NS_CF_JSON) as f:
+        ref = json.load(f)
+    with multiprocessing.get_context("spawn").Pool(1) as pool:
+        cpu_job = pool.apply_async(_ns_reference_cpu)
+
+        # --- train_cf_interp's pressure solves and Schur round trip, in its
+        # float64 (float32 stalls at tol 1e-8: printed, not checked) ---
+        t0 = time.time()
+        opts = {"mlamg_amg_rtol": 0.0, "mlamg_max_iter": 2, "mlamg_greedy_theta": 0.56}
+        learned_opts = Options(dict(opts, mlamg_pnet_model=NS_CKPT))
+        out["pressure_solves"] = []
+        for row in ref["pressure_solves"]:
+            A = _pinned(lid_driven_cavity(n=row["n_res"], Re=10.0).Ap)
+            got = {"n_res": row["n_res"]}
+            for dtype, tag in ((torch.float64, ""), (torch.float32, "_f32")):
+                pcs = {"learned": LearnedAMGPreconditioner(A, learned_opts, dtype=dtype,
+                                                           device="cuda"),
+                       "classical": LearnedAMGPreconditioner(A, Options(opts), dtype=dtype,
+                                                             device="cuda")}
+                for name, pc in pcs.items():
+                    its = [fgmres(pc.A, torch.from_numpy(np.random.RandomState(1000 + sd).randn(
+                        A.shape[0])).to("cuda", dtype), M=pc, tol=1e-8)[2] for sd in range(5)]
+                    got[f"{name}{tag}"] = float(np.mean(its))
+            out["pressure_solves"].append(got)
+            for name in ("learned", "classical"):
+                want = row[f"fgmres_{name}_mean"]
+                check(abs(got[name] - want) <= NS_MEAN_TOL,
+                      f"pressure solve n {row['n_res']}: {name} mean {got[name]} vs {want}")
+            check(got["learned"] < got["classical"],
+                  f"pressure solve n {row['n_res']}: learned {got['learned']} not below "
+                  f"classical {got['classical']}")
+        s = lid_driven_cavity(n=ref["eval_size"], Re=10.0, dt=0.05)
+        A = _pinned(s.Ap)
+        out["schur_round_trip"] = {}
+        for name, o in (("learned", learned_opts), ("classical", Options(opts))):
+            pc = LearnedAMGPreconditioner(A, o, dtype=torch.float64, device="cuda")
+            x, _, iters = SchurFieldsplitSolver(s, pc, dtype=torch.float64,
+                                                device="cuda").solve(tol=1e-8)
+            res = float(np.linalg.norm(s.saddle_matrix() @ x.cpu().numpy() - s.rhs()))
+            want = ref[f"fgmres_iters_{name}"]
+            out["schur_round_trip"][name] = {"iters": iters, "json_iters": want, "res": res}
+            check(abs(iters - want) <= NS_SCHUR_ITER_TOL and res < NS_SCHUR_RES,
+                  f"Schur round trip {name}: {iters} iterations (JSON {want}), residual {res}")
+        out["seconds_pressure"] = time.time() - t0
+
+        # each preconditioner's apply, card against CPU, where it is well
+        # posed: on the pinned Laplacian (PCDR on the system itself)
+        from mlamg_torch.deploy import PCDRPreconditioner, SAPreconditioner
+
+        v = np.random.RandomState(7).randn(s.n_p)
+        out["apply_card_vs_cpu"] = {}
+        for name, make in (
+                ("pcdr", lambda d: PCDRPreconditioner(s, dtype=torch.float64, device=d)),
+                ("sa", lambda d: SAPreconditioner(A, Options({"pyamg_alpha": 0.2}),
+                                                  dtype=torch.float64, device=d)),
+                ("mlamg", lambda d: LearnedAMGPreconditioner(
+                    A, Options(dict(opts, mlamg_max_iter=4)), dtype=torch.float64, device=d)),
+                ("mlamg_net", lambda d: LearnedAMGPreconditioner(
+                    A, Options(dict(opts, mlamg_max_iter=4, mlamg_pnet_model=NS_CKPT)),
+                    dtype=torch.float64, device=d))):
+            y = [make(d)(torch.from_numpy(v).to(d)).cpu().numpy() for d in ("cuda", "cpu")]
+            gap = float(np.abs(y[0] - y[1]).max() / np.abs(y[1]).max())
+            out["apply_card_vs_cpu"][name] = gap
+            check(gap <= NS_APPLY_RTOL, f"{name} apply: card and CPU differ by {gap}")
+
+        # --- the main path: counts set to 0 just before, read just after ---
+        LAUNCHES.clear()
+        runs = {}
+        for name, args in NS_FULL.items():
+            runs[name] = solve_ns.main([*args, *NS_STEP, "--device", "cuda"],
+                                       log=lambda *_: None)
+            torch.cuda.synchronize()
+            if name != "cavity128_pcdr":  # only that one is traced below
+                runs[name]["solver"] = None
+        launches = {k: LAUNCHES[k] for k in ("well_spmv", "dia_spmv")}
+        # ---------------------------------------------------------------------
+
+        out["launches"] = launches
+        out["full"], failed = {}, []
+        for name, r in runs.items():
+            steps = []
+            for st in r["steps"]:
+                bnorm = float(np.linalg.norm(st["b"].astype(np.float64)))
+                res, est = st["res"] / bnorm, st["fgmres_res"] / bnorm
+                steps.append({"iters": st["iters"], "seconds": st["seconds"],
+                              "res_f64": res, "res_fgmres": est,
+                              "ms_per_iteration": 1e3 * st["seconds"] / max(st["iters"], 1)})
+                if not (st["iters"] < NS_MAX_ITERS and np.isfinite(st["x"]).all()
+                        and res <= NS_RES_FACTOR * max(est, NS_TOL)
+                        and est <= NS_RES_FACTOR * res and res <= NS_RES_FACTOR * NS_TOL):
+                    failed.append(f"{name}: {steps[-1]}")
+            sysm = r["system"]
+            out["full"][name] = {"n_u": sysm.n_u, "n_p": sysm.n_p, "setup_s": r["setup_s"],
+                                 "steps": steps}
+
+        # ms per FGMRES iteration by CUDA events (step 0 solved again), and a
+        # trace of one FGMRES iteration of the cavity-128 PCDR solve
+        r = runs["cavity128_pcdr"]
+        solver = r["solver"]
+        b0 = torch.from_numpy(r["steps"][0]["b"]).to("cuda")
+        iters0 = r["steps"][0]["iters"]
+        out["cavity128_pcdr_ms_per_iteration_events"] = cuda_ms(
+            lambda: solver.solve(b0, tol=NS_TOL), iters=1, warmup=0) / iters0
+        op = _CallableOp(solver.matvec, solver.n_u + solver.n_p)
+        out["cavity128_pcdr_iteration_trace"] = device_trace(
+            lambda: fgmres(op, b0, M=solver.preconditioner, restart=1, max_restarts=1,
+                           tol=NS_TOL), iters=1, kernel="trs")
+        del runs, solver, r
+        torch.cuda.empty_cache()
+
+        # --- card against CPU, cavity n 32: float64, then float32 ---
+        t0 = time.time()
+        card64 = _ns_small_runs("cuda", True)
+        card32 = _ns_small_runs("cuda", False)
+        out["seconds_card_small"] = time.time() - t0
+        cpu = cpu_job.get(timeout=NS_SECONDS * 4)
+        out["cpu_seconds"] = cpu["seconds"]
+        out["f64"], failed64 = _ns_card_vs_cpu(card64, cpu["f64"], dict(
+            pcdr=(0, NS_F64_RTOL), sa=(0, NS_SINGULAR_RTOL), mlamg=(0, NS_SINGULAR_RTOL)))
+        out["f32"], failed32 = _ns_card_vs_cpu(card32, cpu["f32"], dict(
+            pcdr=(NS_F32_ITER_BAND, NS_F32_RTOL), sa=None, mlamg=None))
+
+    check(not any(launches.values()), f"ns path launched CUDA kernels: {launches}")
+    check(not failed, f"ns full-width steps: {failed}")
+    check(not failed64, f"ns card vs CPU, float64: {failed64}")
+    check(not failed32, f"ns card vs CPU, float32: {failed32}")
+    out["seconds_phase"] = time.time() - t_phase
+    check(out["seconds_phase"] <= NS_SECONDS,
+          f"ns phase took {out['seconds_phase']:.1f} s (limit {NS_SECONDS} s)")
+    return out, launches
+
+
 def main() -> None:
     import torch
 
@@ -1692,6 +1989,14 @@ def main() -> None:
     emit(ga_line)
     kernel["launches_ga"] = ga_launches["well_spmv"]
     dia.update(launches_ga=ga_launches["dia_spmv"])
+
+    # --- slice 6: the Navier-Stokes deployment (no kernel on its path), in
+    # a fresh process for the same reason ---
+    with ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn")) as ex:
+        ns_line, ns_launches = ex.submit(ns_phase).result()
+    emit(ns_line)
+    kernel["launches_ns"] = ns_launches["well_spmv"]
+    dia.update(launches_ns=ns_launches["dia_spmv"])
     dia.update(
         launches=dia_launches,
         launches_vcycles=structured["dia_spmv_launches_cycles"],

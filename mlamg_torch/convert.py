@@ -4,9 +4,10 @@
 :func:`hierarchy_from_numpy` the structured :class:`Hierarchy` from plain
 numpy/scipy data, exactly what ``np.asarray`` pulls out of the JAX
 package's hierarchies.  :func:`fullaggnet_from_params` loads a
-checkpoint's learned weights into the port's :class:`FullAggNet`, and
-:func:`params_from_fullaggnet` writes them back as the JAX package's
-parameter tree.
+checkpoint's learned weights into the port's :class:`FullAggNet` and
+:func:`cfnet_from_params` into its :class:`CFInterpolationNetwork`;
+:func:`params_from_fullaggnet` and :func:`params_from_cfnet` write them back
+as the JAX package's parameter tree.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from mlamg_torch.mg.coarse import CoarseSolver
 from mlamg_torch.mg.cycle import Hierarchy
 from mlamg_torch.mg.factored import BilinearP2D, BoxAgg2D, FactoredSA
 from mlamg_torch.models.agg_interp import FullAggNet
+from mlamg_torch.models.cf_interp import CFInterpolationNetwork
 from mlamg_torch.models.gnn import Dense, LayerNorm
 from mlamg_torch.ops.dia import DIA
 
@@ -130,9 +132,31 @@ def fullaggnet_from_params(params: Mapping, net_config: Mapping, device=None,
                      iterations=int(net_config["iterations"]),
                      bf_width=None if bf_width is None else int(bf_width),
                      rel_strength=bool(net_config.get("rel_strength", False)))
-    flat = _flat_params(params["params"])
+    _load_flax_params(net, params, "fullaggnet_from_params")
+    return net.to(device=dev, dtype=dtype).eval()
+
+
+def cfnet_from_params(params: Mapping, net_config: Mapping | None = None, device=None,
+                      dtype=torch.float32) -> CFInterpolationNetwork:
+    """The port's :class:`CFInterpolationNetwork` with the weights of a
+    checkpoint's ``best_params`` (``{"params": {"model": ...}}``, numpy
+    arrays), mapped as :func:`fullaggnet_from_params` maps them.
+    ``net_config`` (a checkpoint's ``extra["net_config"]``) holds ``dims``,
+    ``K`` and ``row_normalize``; without it the network's defaults."""
+    dev = resolve_device(device)
+    nc = net_config or {}
+    net = CFInterpolationNetwork(**({"dims": tuple(nc["dims"]), "K": int(nc["K"]),
+                                     "row_normalize": bool(nc["row_normalize"])} if nc else {}))
+    _load_flax_params(net, params, "cfnet_from_params")
+    return net.to(device=dev, dtype=dtype).eval()
+
+
+def _load_flax_params(net, params: Mapping, who: str) -> None:
+    """Load a flax parameter tree into ``net``: a Dense ``kernel`` (in, out)
+    becomes ``weight`` (out, in), a LayerNorm ``scale`` ``weight``.  A
+    missing or unknown key, or a shape that does not fit, raises."""
     state = {}
-    for path, value in flat.items():
+    for path, value in _flat_params(params["params"]).items():
         value = np.asarray(value)
         state[_torch_key(path)] = torch.from_numpy(
             np.ascontiguousarray(value.T if path.endswith("/kernel") else value))
@@ -140,12 +164,11 @@ def fullaggnet_from_params(params: Mapping, net_config: Mapping, device=None,
     missing = sorted(set(expected) - set(state))
     unknown = sorted(set(state) - set(expected))
     if missing or unknown:
-        raise ValueError(f"fullaggnet_from_params: missing {missing}, unknown {unknown}")
+        raise ValueError(f"{who}: missing {missing}, unknown {unknown}")
     bad = [k for k, v in state.items() if v.shape != expected[k].shape]
     if bad:
-        raise ValueError(f"fullaggnet_from_params: shapes differ for {bad}")
+        raise ValueError(f"{who}: shapes differ for {bad}")
     net.load_state_dict(state)
-    return net.to(device=dev, dtype=dtype).eval()
 
 
 def param_leaves(net) -> list:
@@ -169,6 +192,16 @@ def params_from_fullaggnet(net) -> dict:
     """The JAX package's parameter tree ``{"params": {"AggNetM": ...,
     "CNet": ..., "PNet": ...}}`` of numpy arrays, from a port module; the
     inverse of :func:`fullaggnet_from_params`."""
+    return _flax_params(net)
+
+
+def params_from_cfnet(net) -> dict:
+    """The JAX package's parameter tree ``{"params": {"model": ...}}`` of a
+    :class:`CFInterpolationNetwork`; the inverse of :func:`cfnet_from_params`."""
+    return _flax_params(net)
+
+
+def _flax_params(net) -> dict:
     tree: dict = {}
     for path, p, is_kernel in param_leaves(net):
         value = p.detach().cpu().numpy()

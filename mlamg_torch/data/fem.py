@@ -1,7 +1,8 @@
 """First-party P1 finite-element assembly (numpy, vectorized).
 
 Counterpart of ``mlamg_tpu/data/fem.py`` (the pieces the random-hull FEM
-problem family and the structured Poisson problems need).  Pure numpy/scipy, so the assembled matrix is
+problem family, the structured Poisson problems and the cylinder-flow
+Oseen system need).  Pure numpy/scipy, so the assembled matrix is
 bit-identical to the JAX package's.
 """
 
@@ -113,6 +114,62 @@ def _scatter_local(local: np.ndarray, elements: np.ndarray, n: int):
     rows = np.repeat(elements, 3, axis=1).ravel()
     cols = np.tile(elements, (1, 3)).ravel()
     return sp.coo_matrix((local.ravel(), (rows, cols)), shape=(n, n)).tocsr()
+
+
+def mass_form(vertices: np.ndarray, elements: np.ndarray) -> sp.csr_matrix:
+    """Consistent P1 mass matrix M_ij = ∫ φ_i φ_j."""
+    e = np.asarray(elements, dtype=np.int64)
+    _, area = _basis_gradients(vertices, e)
+    base = (np.ones((3, 3)) + np.eye(3)) / 12.0
+    local = area[:, None, None] * base[None]
+    return _scatter_local(local, e, np.asarray(vertices).shape[0])
+
+
+def convection_form(vertices: np.ndarray, elements: np.ndarray, wind) -> sp.csr_matrix:
+    """P1 convection C_ij = ∫ φ_i (w · ∇φ_j), wind evaluated at centroids.
+
+    ``wind(x, y) -> (2,)`` or vectorized ``wind(xs, ys) -> (m, 2)``.
+    """
+    v = np.asarray(vertices, dtype=np.float64)
+    e = np.asarray(elements, dtype=np.int64)
+    G, area = _basis_gradients(v, e)
+    cent = (v[e[:, 0]] + v[e[:, 1]] + v[e[:, 2]]) / 3.0
+    w = np.asarray(wind(cent[:, 0], cent[:, 1]), dtype=np.float64)
+    if w.ndim == 1:
+        w = np.broadcast_to(w, (len(e), 2))
+    wg = np.einsum("mc,mjc->mj", w, G)  # (m, 3): w . grad(phi_j)
+    local = (area / 3.0)[:, None, None] * np.broadcast_to(wg[:, None, :], (len(e), 3, 3))
+    return _scatter_local(local, e, v.shape[0])
+
+
+def div_forms(vertices: np.ndarray, elements: np.ndarray):
+    """Divergence coupling blocks (Bx, By): B^c[q, j] = ∫ φ_q ∂φ_j/∂x_c."""
+    v = np.asarray(vertices, dtype=np.float64)
+    e = np.asarray(elements, dtype=np.int64)
+    G, area = _basis_gradients(v, e)
+    out = []
+    for c in range(2):
+        local = (area / 3.0)[:, None, None] * np.broadcast_to(G[:, None, :, c], (len(e), 3, 3))
+        out.append(_scatter_local(local, e, v.shape[0]))
+    return out[0], out[1]
+
+
+def bp_stabilization(vertices: np.ndarray, elements: np.ndarray) -> sp.csr_matrix:
+    """Brezzi-Pitkäranta pressure stabilization Σ_T h_T² (∇p, ∇q)_T, which
+    makes the equal-order P1-P1 velocity/pressure pair inf-sup stable."""
+    v = np.asarray(vertices, dtype=np.float64)
+    e = np.asarray(elements, dtype=np.int64)
+    G, area = _basis_gradients(v, e)
+    p0, p1, p2 = v[e[:, 0]], v[e[:, 1]], v[e[:, 2]]
+    h2 = np.maximum.reduce([((p1 - p0) ** 2).sum(1), ((p2 - p1) ** 2).sum(1),
+                            ((p0 - p2) ** 2).sum(1)])
+    local = np.einsum("mia,mja->mij", G, G) * (area * h2)[:, None, None]
+    return _scatter_local(local, e, v.shape[0])
+
+
+def boundary_vertices_from_edges(line_cells: np.ndarray) -> np.ndarray:
+    """Unique vertex ids touched by boundary ('line') cells."""
+    return np.unique(np.asarray(line_cells).ravel())
 
 
 def eliminate_dirichlet(A: sp.csr_matrix, vertices: np.ndarray, boundary: np.ndarray):

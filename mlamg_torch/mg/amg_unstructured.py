@@ -289,7 +289,7 @@ def build_unstructured_hierarchy(
         raise NotImplementedError(
             f"rap_mode={rap_mode!r}: only the host Galerkin product ('auto') is "
             "ported; the pattern-masked device product needs spgemm_masked "
-            "(ROADMAP.md Queue 1 item 10)"
+            "(ROADMAP.md Queue 1 item 3)"
         )
     if seed_mode not in ("stride", "random"):
         raise ValueError(f"unknown seed_mode: {seed_mode}")

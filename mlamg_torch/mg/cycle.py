@@ -8,9 +8,10 @@ test reads each iteration's norm on the host.
 
 Ported: ``twolevel_solve`` with weighted Jacobi (fused or not),
 Chebyshev (``lmax`` by power iteration unless given) and multicolor
-Gauss-Seidel, ``Hierarchy``, ``vcycle`` and ``vcycle_solve``, for dense,
-sparse (CSR/ELL) and factored prolongators.  Not ported yet
-(``ROADMAP.md``): ``build_hierarchy``.
+Gauss-Seidel, ``Hierarchy``, ``build_hierarchy`` (dense coarse levels),
+``vcycle`` and ``vcycle_solve``, for dense, sparse (CSR/ELL) and factored
+prolongators.  Not ported yet (``ROADMAP.md``): ``build_hierarchy``'s
+sparse coarse levels (``sparse_levels``).
 """
 
 from __future__ import annotations
@@ -22,13 +23,16 @@ from typing import Tuple
 
 import torch
 
-from mlamg_torch.graph.strength import power_iteration_lmax
+from mlamg_torch.graph.lloyd import lloyd_aggregation
+from mlamg_torch.graph.strength import power_iteration_lmax, strength_measure
 from mlamg_torch.mg.coarse import CoarseSolver
 from mlamg_torch.mg.factored import BilinearP2D, FactoredSA, coarse_operator_factored
+from mlamg_torch.mg.interp import sa_interpolation_dense
 from mlamg_torch.mg.smoothers import _dinv, chebyshev, jacobi, multicolor_gauss_seidel
 from mlamg_torch.ops import matmul
 from mlamg_torch.ops.dia import DIA, dia_jacobi_operator
 from mlamg_torch.ops.sparse import CSR, ELL
+from mlamg_torch.utils import prng
 
 
 def _is_factored(P) -> bool:
@@ -189,6 +193,56 @@ class Hierarchy:
     @property
     def num_levels(self) -> int:
         return len(self.As)
+
+
+def build_hierarchy(A: CSR, *, alpha: float = 0.1, max_levels: int = 3, min_coarse: int = 64,
+                    strength_kind: str = "abs", width: int | None = None, key=None,
+                    sparse_levels: int = 0) -> Hierarchy:
+    """Aggregation setup: strength -> Lloyd -> Jacobi-SA dense P -> dense
+    RAP, level by level while a level has more than ``min_coarse`` rows;
+    every coarse operator is a dense tensor and the coarsest is LU-factored.
+
+    Lloyd's keys come from ``key`` (default ``PRNGKey(0)``), split once per
+    level, as the JAX package splits them.  A dense level's strength is
+    taken on its CSR (``width`` is its row-degree bound for the measures
+    that need one).  ``sparse_levels > 0`` (sparse Galerkin products) is
+    not ported yet and raises.
+    """
+    import scipy.sparse as sp
+
+    if sparse_levels:
+        raise NotImplementedError(
+            "build_hierarchy: sparse_levels needs rap_fused, which is not ported yet "
+            "(ROADMAP.md Queue 1 item 3)")
+    key = prng.PRNGKey(0) if key is None else key
+    As: list = [A]
+    Ps: list = []
+    Dinvs: list = []
+    level_A = A
+    for _ in range(max_levels - 1):
+        n = level_A.shape[0]
+        if n <= min_coarse:
+            break
+        k = int(math.ceil(alpha * n))
+        if isinstance(level_A, CSR):
+            lvl_width = int((level_A.indptr[1:] - level_A.indptr[:-1]).max())
+            C = strength_measure(level_A, strength_kind, width=lvl_width)
+        else:
+            dense = sp.csr_matrix(level_A.cpu().numpy())
+            C = strength_measure(CSR.from_scipy(dense, dtype=level_A.dtype, device=level_A.device),
+                                 strength_kind, width=width)
+        d = level_A.diagonal()
+        key, sub = prng.split(key)
+        agg_id, _, _ = lloyd_aggregation(C, ratio=alpha, key=sub)
+        Dinvs.append(1.0 / torch.where(d != 0, d, torch.ones_like(d)))
+        P = sa_interpolation_dense(level_A, agg_id, k)
+        Ps.append(P)
+        level_A = matmul.rap_dense(level_A, P)
+        As.append(level_A)
+
+    A_c = As[-1]
+    coarse = CoarseSolver.factor(A_c if isinstance(A_c, torch.Tensor) else A_c.todense())
+    return Hierarchy(tuple(As[:-1]), tuple(Ps), tuple(Dinvs), coarse)
 
 
 def _level_spmv(A, x: torch.Tensor) -> torch.Tensor:

@@ -14,8 +14,8 @@ by strided slices on the 2-D grid view.
 
 Ported for a DIA operand with :class:`BoxAgg2D` aggregates.  Not ported
 yet (``ROADMAP.md``): ``AggOp`` (aggregates from an assignment vector),
-the CSR branch of ``factored_sa`` (``_csr_jacobi_smoother``), and the
-``sa_omega`` power-iteration default (``ROADMAP.md`` Queue 1 item 1).
+and the CSR branch of ``factored_sa`` (``_csr_jacobi_smoother``), both in
+``ROADMAP.md`` Queue 1 item 3.
 """
 
 from __future__ import annotations
@@ -27,6 +27,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from mlamg_torch.mg.interp import sa_omega
 from mlamg_torch.mg.smoothers import _dinv
 from mlamg_torch.ops import matmul
 from mlamg_torch.ops.dia import DIA, dia_jacobi_operator
@@ -255,32 +256,29 @@ def _chebyshev_weights(lmax: float, smooth_steps: int, dtype: torch.dtype):
     return [float(w) for w in dt(1.0) / roots]
 
 
-def factored_sa(A: DIA, T: BoxAgg2D, omega=None, smooth_steps: int = 1,
-                lmax=None) -> FactoredSA:
+def factored_sa(A: DIA, T: BoxAgg2D, omega=None, power_iters: int = 30,
+                smooth_steps: int = 1, lmax=None) -> FactoredSA:
     """Factored SA prolongator of a DIA operator over box aggregates.
 
-    With ``smooth_steps == 1`` one factor of weight ``omega``; with s > 1
-    the weights are the inverse Chebyshev roots over [lmax/15, lmax], so
-    prod_i (1 - w_i t) is the minimax degree-s polynomial with p(0) = 1.
-    ``omega`` may also be a sequence of weights.  The JAX package's
-    power-iteration defaults (``omega=None`` with one step, or no ``lmax``)
-    need ``sa_omega``, which is not ported yet (``ROADMAP.md`` Queue 1
-    item 1): they raise ``NotImplementedError``, and its ``power_iters``
-    argument is left out."""
+    With ``smooth_steps == 1`` one factor of weight ``omega`` (default
+    (4/3) / rho(D^-1 A) by ``power_iters`` power iterations, ``sa_omega``);
+    with s > 1 the weights are the inverse Chebyshev roots over
+    [lmax/15, lmax] (``lmax`` defaults to rho(D^-1 A) from the same power
+    iteration), so prod_i (1 - w_i t) is the minimax degree-s polynomial
+    with p(0) = 1.  ``omega`` may also be a sequence of weights."""
     if not isinstance(A, DIA):
         raise NotImplementedError(
             "factored_sa: only a DIA operator is ported; the CSR branch is "
-            "listed in ROADMAP.md Queue 1 item 9"
+            "listed in ROADMAP.md Queue 1 item 3"
         )
     Dinv = _dinv(A)
     if omega is None:
-        if smooth_steps == 1 or lmax is None:
-            raise NotImplementedError(
-                "factored_sa: the sa_omega power-iteration default is not "
-                "ported yet (ROADMAP.md Queue 1 item 1); pass omega, or "
-                "lmax with smooth_steps > 1"
-            )
-        omegas = _chebyshev_weights(float(lmax), smooth_steps, A.dtype)
+        if smooth_steps == 1:
+            omegas = [float(sa_omega(A, Dinv, iters=power_iters))]
+        else:
+            if lmax is None:  # (4/3) / omega in A's type, as JAX divides it
+                lmax = float((4.0 / 3.0) / sa_omega(A, Dinv, iters=power_iters))
+            omegas = _chebyshev_weights(float(lmax), smooth_steps, A.dtype)
     elif np.ndim(omega) == 0:
         omegas = [float(omega)] * max(smooth_steps, 1)
     else:
@@ -292,7 +290,7 @@ def factored_sa(A: DIA, T: BoxAgg2D, omega=None, smooth_steps: int = 1,
         if S is None:
             raise NotImplementedError(
                 "factored_sa: a DIA without a stored main diagonal needs the "
-                "CSR branch, not ported yet (ROADMAP.md Queue 1 item 9)"
+                "CSR branch, not ported yet (ROADMAP.md Queue 1 item 3)"
             )
         Ss.append(S)
         Sts.append(dia_transpose(S))

@@ -1,7 +1,7 @@
 """Sparse matrix products (counterpart of ``mlamg_tpu/ops/matmul.py``
 :func:`spmv`, :func:`spmv_affine`, :func:`spmv_t`, :func:`spmm`,
-:func:`spmm_t`, :func:`spgemm_masked`, :func:`rap_dense` and
-:func:`densify`).
+:func:`spmm_t`, :func:`transpose`, :func:`spgemm_masked`, :func:`rap_dense`
+and :func:`densify`).
 
 A :class:`WindowedELL` goes to ``well_spmv`` and a :class:`DIA` to
 ``dia_spmv`` (the hand-written CUDA kernels on the card; the JAX package
@@ -9,16 +9,18 @@ sends only a pre-blocked DIA on a TPU to its kernel, the port every DIA on
 CUDA).  A :class:`CSR` or :class:`ELL` runs as a gather plus an in-order
 slot sum (:func:`~mlamg_torch.ops.sparse.slot_sum`): the JAX package's
 gather plus ``segment_sum`` in the order the CPU adds it, and the same
-order on every run on the card.  A dense tensor is a matmul.
+order on every run on the card.  A :class:`BSR` is a batched product of
+its blocks.  A dense tensor is a matmul.
 """
 
 from __future__ import annotations
 
 import torch
 
+from mlamg_torch.ops.bsr import BSR, bsr_spmv, bsr_spmv_t
 from mlamg_torch.ops.dia import DIA, dia_spmm, dia_spmv, dia_spmv_t
 from mlamg_torch.ops.segment import ordered_sum
-from mlamg_torch.ops.sparse import CSR, ELL, slot_sum
+from mlamg_torch.ops.sparse import COO, CSR, ELL, slot_sum
 from mlamg_torch.ops.unstructured import WindowedELL, well_spmv
 
 
@@ -28,10 +30,12 @@ def _ell_rowsum(data: torch.Tensor, col: torch.Tensor, X: torch.Tensor) -> torch
 
 
 def spmv(A, x: torch.Tensor) -> torch.Tensor:
-    """y = A @ x for a dense tensor, CSR, ELL, DIA or WindowedELL A and a
-    dense (n,) x."""
+    """y = A @ x for a dense tensor, CSR, ELL, BSR, DIA or WindowedELL A and
+    a dense (n,) x."""
     if isinstance(A, torch.Tensor):
         return A @ x
+    if isinstance(A, BSR):
+        return bsr_spmv(A, x)
     if isinstance(A, WindowedELL):
         return well_spmv(A, x)
     if isinstance(A, DIA):
@@ -57,9 +61,12 @@ def spmv_affine(A, x: torch.Tensor, c: torch.Tensor | None = None,
 
 
 def spmv_t(A, x: torch.Tensor) -> torch.Tensor:
-    """y = A.T @ x without forming the transpose (dense, DIA, CSR or ELL A)."""
+    """y = A.T @ x without forming the transpose (dense, DIA, BSR, CSR or
+    ELL A)."""
     if isinstance(A, DIA):
         return dia_spmv_t(A, x)
+    if isinstance(A, BSR):
+        return bsr_spmv_t(A, x)
     return spmm_t(A, x)
 
 
@@ -90,6 +97,17 @@ def spmm_t(A, X: torch.Tensor) -> torch.Tensor:
         rows = A.row.clamp(max=A.shape[0] - 1)
         return slot_sum(scale(A.data, X[rows]), A.col_slots)
     raise TypeError(f"spmm_t: unsupported operand {type(A).__name__}")
+
+
+def transpose(A) -> CSR:
+    """A.T as a CSR (a CSR or COO A), by the stable (row, col) sort of the
+    flipped coordinates; padding keeps the sentinel row and goes to the
+    tail."""
+    m, n = A.shape
+    mask = A.row < m
+    flipped = COO(A.data, torch.where(mask, A.col, torch.full_like(A.col, n)),
+                  torch.where(mask, A.row, torch.zeros_like(A.row)), (n, m), A.nnz)
+    return flipped.sort_rows()
 
 
 def spgemm_masked(A, B, pattern: CSR, *, a_width: int, b_width: int) -> CSR:

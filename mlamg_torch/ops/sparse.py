@@ -1,4 +1,4 @@
-"""Padded CSR and ELL containers (counterpart of ``mlamg_tpu/ops/sparse.py``).
+"""Padded COO, CSR and ELL containers (counterpart of ``mlamg_tpu/ops/sparse.py``).
 
 Padding follows the JAX package's convention: padded entries have
 ``row == shape[0]`` (an out-of-range sentinel that segment reductions
@@ -60,6 +60,31 @@ def slot_sum(values: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
     to ``len(values)`` adds zero)."""
     pad = values.new_zeros((1,) + tuple(values.shape[1:]))
     return ordered_sum(torch.cat([values, pad])[slots], 1)
+
+
+@dataclasses.dataclass(frozen=True)
+class COO:
+    """Padded COO matrix; entries need not be sorted.  Padding entries have
+    ``row == shape[0]``, ``col == 0`` and ``data == 0``; ``nnz`` counts
+    every slot the producer filled (it may be a capacity bound)."""
+
+    data: torch.Tensor  # (nnz_pad,)
+    row: torch.Tensor  # (nnz_pad,) int64
+    col: torch.Tensor  # (nnz_pad,) int64
+    shape: Tuple[int, int]
+    nnz: int
+
+    def sort_rows(self) -> "CSR":
+        """Stable (row, col) sort into CSR form, as two stable argsorts
+        (column, then row): entries with equal coordinates keep their
+        order, and padding goes to the tail."""
+        m, _ = self.shape
+        order_c = torch.sort(self.col, stable=True).indices
+        order_r = torch.sort(self.row[order_c], stable=True).indices
+        perm = order_c[order_r]
+        row = self.row[perm]
+        indptr = torch.searchsorted(row, torch.arange(m + 1, dtype=row.dtype, device=row.device))
+        return CSR(self.data[perm], row, self.col[perm], indptr, self.shape, self.nnz)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -125,6 +125,34 @@ def test_evaluation_entry_points_default_to_cuda_and_raise_without_it(no_cuda, t
     assert (tmp_path / "eval_test_alpha0.1.pkl").exists()
 
 
+def test_deploy_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
+    from mlamg_torch.cli import solve_ns
+    from mlamg_torch.data.stokes import lid_driven_cavity
+    from mlamg_torch.deploy import (LearnedAMGPreconditioner, Options, PCDRPreconditioner,
+                                    SAPreconditioner, SchurFieldsplitSolver)
+    from mlamg_torch.mg.cycle import build_hierarchy
+    from mlamg_torch.ops.bsr import BSR
+
+    s = lid_driven_cavity(n=10, Re=100.0, dt=0.1)
+    ckpt = str(REPO / "runs_cf_interp" / "cf_best.ckpt")
+    for call in (lambda: PCDRPreconditioner(s),
+                 lambda: SAPreconditioner(s.Ap),
+                 lambda: LearnedAMGPreconditioner(s.Ap),
+                 lambda: LearnedAMGPreconditioner(s.Ap, Options({"mlamg_pnet_model": ckpt})),
+                 lambda: SchurFieldsplitSolver(s, lambda r: r),
+                 lambda: BSR.from_scipy(s.F, 2),
+                 lambda: solve_ns.main(["--n", "10", "--steps", "1"], log=lambda *_: None)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    from mlamg_torch.ops.sparse import CSR
+
+    h = build_hierarchy(CSR.from_scipy(s.Ap, device="cpu"), alpha=0.2)
+    assert h.As[0].device.type == "cpu" and h.coarse.lu.device.type == "cpu"
+    out = solve_ns.main(["--n", "10", "--steps", "1", "--schur-pc", "mlamg", "--pnet-model", ckpt,
+                         "--device", "cpu"], log=lambda *_: None)
+    assert out["steps"][0]["iters"] > 0 and out["solver"].B.data.device.type == "cpu"
+
+
 def test_training_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
     from mlamg_torch.cli import pretrain_dataset, train_dataset, train_gradient, train_one_sample
     from mlamg_torch.data.grid import Grid

@@ -120,12 +120,27 @@ def test_factored_sa_factors_match_jax(rng, steps):
 def test_factored_sa_unported_defaults_raise():
     _, At = pair(poisson2d(8))
     T = factored.BoxAgg2D(8, 8, 2, 2)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
-        factored.factored_sa(At, T)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
-        factored.factored_sa(At, T, smooth_steps=2)
-    with pytest.raises(NotImplementedError, match="CSR"):
+    with pytest.raises(NotImplementedError, match="CSR branch.*Queue 1 item 3"):
         factored.factored_sa(torch.eye(64), T, omega=0.6)
+    no_diag = DIA(At.data[:2], At.offsets[:2], At.shape)
+    assert 0 not in no_diag.offsets
+    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+        factored.factored_sa(no_diag, T, omega=0.6)
+
+
+@pytest.mark.parametrize("steps", [1, 2])
+def test_factored_sa_default_omega_matches_jax(rng, steps):
+    """omega=None: sa_omega's power iteration (one factor), or the
+    Chebyshev weights of lmax = (4/3) / sa_omega (two factors)."""
+    Aj, At = pair(poisson2d(16, aniso=0.3))
+    Pj = jfac.factored_sa(Aj, jfac.BoxAgg2D(16, 16, 4, 4), smooth_steps=steps)
+    Pt = factored.factored_sa(At, factored.BoxAgg2D(16, 16, 4, 4), smooth_steps=steps)
+    assert Pt.smooth_steps == steps
+    for S, Sj in zip(Pt.Ss + Pt.Sts, Pj.Ss + Pj.Sts):
+        assert_dia_equal(S, Sj, atol=1e-10)
+    close(Pt.densify(), Pj.densify(), atol=1e-10)
+    v = rng.randn(256)
+    close(Pt.restrict(t(v)), Pj.restrict(jnp.asarray(v)), atol=1e-10)
 
 
 @pytest.mark.parametrize("kind", ["sa", "bilinear"])
