@@ -36,11 +36,29 @@ Phases (each prints one JSON line; any failure exits non-zero):
    time, and the fine level's bandwidth and gather spans; and the sweeps
    behind the kernel's choices: every LANES at every level, sigma 1
    against 256 at levels 0-1.
-4. dia_kernel: hold ``dia_spmv`` against ``dia_spmv_reference`` (plain and
+4. galerkin: the sparse Galerkin setup on the same 600k hull (not meshed
+   again): the path's hierarchy built with ``rap_mode="device"`` (the
+   pattern-masked products on the card; the path phase's ``"auto"`` is the
+   host product) and the same W(4,4) solve on it, held to the path phase's
+   checks (conv, cycles, residual, launches).  Level 0's aggregates equal
+   the host hierarchy's, and level 0's A_H from ``rap_masked`` is within
+   1e-4 * max|A_H| of the host product on the same (A, agg, omega).
+   Prints per level the aggregate entries that differ (deeper levels
+   aggregate an A_H that rounding moves), the branch, pt_width and
+   ap_width and the product's seconds; setup seconds and profile of both
+   modes and the device setup's peak memory.  ``rap_learned`` with a random
+   P-hat, against a float64 scipy oracle (rtol = atol = 2e-4): on the
+   1500-node hull with random aggregates (the JAX package's test) and on
+   the 600k level 0 with its Lloyd aggregates.
+   ``build_hierarchy(sparse_levels=1)`` on the 256^2 Poisson in float64 on
+   the card and on the CPU: the coarse CSR equal (pattern) and within
+   1e-12 relative, and ``vcycle_solve`` to a relative residual of 1e-8 on
+   both.
+5. dia_kernel: hold ``dia_spmv`` against ``dia_spmv_reference`` (plain and
    affine, 1e-5 * max|y|) on the 4096^2 five-point Poisson and on a
    random banded matrix with n = 128*64 + 37; time kernel, plain version
    and the torch.sparse CSR matvec on the 4096^2 fine level.
-5. structured: the all-DIA hierarchy as bench.py's ``bench_vcycle_16m``
+6. structured: the all-DIA hierarchy as bench.py's ``bench_vcycle_16m``
    drives the JAX package: ``build_structured_hierarchy(kind="bilinear",
    sides=(2,)*7, min_coarse=900)`` on the 4096^2 Poisson (16.8M dofs), then
    Chebyshev V-cycles (nu=2) from a seed-0 x0 with b = 0.  Checks the conv
@@ -50,13 +68,13 @@ Phases (each prints one JSON line; any failure exits non-zero):
    and a seed-1 random right-hand side solved to a float64 relative
    residual below 1e-3.  Times a V-cycle (CUDA events and wall clock) and
    reads a torch.profiler trace of three V-cycles.
-6. twolevel: ``bench_twolevel``'s configuration: ``twolevel_solve`` on the
+7. twolevel: ``bench_twolevel``'s configuration: ``twolevel_solve`` on the
    512^2 Poisson with a factored SA prolongator over 16x16 boxes
    (omega 0.65) and an inverse coarse solve, 24 iterations fused and
    unfused; checks the kernel on the S and S^T factors and the launches.
-7. small_structured: one 64^2 bilinear V-cycle and one 64^2 box-SA fused
+8. small_structured: one 64^2 bilinear V-cycle and one 64^2 box-SA fused
    two-level iteration on the card against the same on the CPU.
-8. eval: the learned two-level evaluation through the port's CLI functions
+9. eval: the learned two-level evaluation through the port's CLI functions
    (``mlamg_torch.cli.evaluate_dataset``: ``load_model``, ``evaluate``) on
    the card in float32 with the ablations, on ``data_out/2d_iso/test``
    (``runs_iso_r5``) and ``data_out/2d_aniso/test`` (``runs_aniso_r5_c``).
@@ -69,7 +87,7 @@ Phases (each prints one JSON line; any failure exits non-zero):
    iteration (CUDA events) and per FullAggNet forward on the largest
    2d_iso grid, and a torch.profiler trace of one ML conv; the phase must
    finish within 90 s.
-9. train: gradient training through the port's CLI functions
+10. train: gradient training through the port's CLI functions
    (``mlamg_torch.cli.train_gradient``: ``prepare``, ``GradientRun.step``,
    ``discrete_losses``; ``mlamg_torch.cli.pretrain_dataset.main``) on the
    card in float32, on the 40 grids of ``data_out/2d_iso/train``.  Checks
@@ -99,7 +117,7 @@ Phases (each prints one JSON line; any failure exits non-zero):
    whether two card runs of it give the same gradient bits, and a
    torch.profiler trace of it; the phase must finish within 150 s.
 
-10. ga, in a fresh process (see ``main``): GA training through the port's CLI functions
+11. ga, in a fresh process (see ``main``): GA training through the port's CLI functions
    (``mlamg_torch.cli.train_dataset``: ``prepare``, ``train``, ``report``)
    on the card in float32 with ``scripts/run_headline_iso_ga.sh``'s flags
    (bucket step 128, init perturbation 0.05, mutation 0.08, adaptive
@@ -124,7 +142,7 @@ Phases (each prints one JSON line; any failure exits non-zero):
    fitness on the larger bucket and a torch.profiler trace of it; the
    phase must finish within 150 s.
 
-11. ns, in a fresh process: the Navier-Stokes deployment through
+12. ns, in a fresh process: the Navier-Stokes deployment through
    ``mlamg_torch.cli.solve_ns.main`` on the card in float32, at the JAX
    CLI's problems at the size of the reference's unsteady-cylflow demo:
    the lid-driven cavity at n 128 (n_u 32,512, n_p 16,384) with each
@@ -155,7 +173,8 @@ Phases (each prints one JSON line; any failure exits non-zero):
    150 s.
 
 Then one line ``{"kernels": [...]}`` with each kernel's launches on its
-main path (``launches_eval``, ``launches_train``, ``launches_ga``,
+main path (``launches_galerkin``: ``well_spmv`` in the device-built
+hierarchy's solve; ``launches_eval``, ``launches_train``, ``launches_ga``,
 ``launches_ns``: on the evaluation's, training's, the GA's and the
 Navier-Stokes path, 0), its largest error
 against the plain version over every check, its time, the plain version's
@@ -264,6 +283,13 @@ NS_F32_ITER_BAND, NS_F32_RTOL = 3, 1e-5
 # on the cavity-14 system), card against CPU in float64
 NS_APPLY_RTOL = 1e-10
 NS_SECONDS = 150.0
+# the sparse Galerkin setup on the 600k hull: the device product's level-0
+# A_H within 1e-4 * max|A_H| of the host product's (the JAX package's bound,
+# tests/test_amg_unstructured.py), rap_learned within rtol = atol = 2e-4 of
+# a float64 scipy oracle (the same test), and build_hierarchy(sparse_levels=1)
+# on the GALERKIN_GRID^2 Poisson in float64, card against CPU, 1e-12 relative
+GALERKIN_AH_RTOL, GALERKIN_LEARNED_TOL, GALERKIN_SPARSE_RTOL = 1e-4, 2e-4, 1e-12
+GALERKIN_GRID, GALERKIN_SOLVE_RTOL = 256, 1e-8
 # The trained model amplifies rounding in the backward as in the forward: in
 # float32 PNet's gradient on the card differs from the CPU's by ~2e-3 of its
 # size (1.89e-3 outside the NNConv root Dense on an H100, PERF.md §6).
@@ -727,6 +753,7 @@ def path_phase(A, rng) -> tuple[dict, int, list, object]:
 
     return {
         "phase": "path",
+        "perm": perm,
         "n": n,
         "nnz": int(A.nnz),
         "num_levels": h.num_levels,
@@ -772,6 +799,231 @@ def small_cycle_phase() -> dict:
     scale = float(np.abs(out["cpu"]).max())
     check(err <= 1e-4 * scale, f"small W-cycle cuda vs cpu: {err} > 1e-4 * {scale}")
     return {"phase": "small_cycle", "n": A.shape[0], "max_abs_err": err, "scale": scale}
+
+
+def allclose_sparse(got, want, rtol: float, atol: float) -> float:
+    """max(|got - want| - rtol * |want|) over the union of both patterns
+    (numpy's allclose holds where it is <= atol)."""
+    return float((abs(got - want) - rtol * abs(want)).max())
+
+
+def learned_p(A_sp, agg: np.ndarray, rng):
+    """A random P-hat on A's coordinates with columns mapped through
+    ``agg`` (FullAggNet's P = P-hat Agg), on the card, and its float64 scipy
+    oracle P^T A P with duplicates summed."""
+    import scipy.sparse as sp
+    import torch
+    from mlamg_torch.ops.sparse import CSR
+
+    A_sp = sp.csr_matrix(A_sp)
+    A_sp.sort_indices()  # the entry order of CSR.from_scipy
+    n, k = A_sp.shape[0], int(agg.max()) + 1
+    coo = A_sp.tocoo()
+    phat = rng.randn(A_sp.nnz).astype(np.float32)
+    A_dev = CSR.from_scipy(A_sp, device="cuda")
+    data = torch.zeros(A_dev.nnz_pad, dtype=torch.float32)
+    data[:A_sp.nnz] = torch.from_numpy(phat)
+    agg_dev = torch.from_numpy(agg.astype(np.int64)).cuda()
+    P_dev = CSR(data.cuda(), A_dev.row, agg_dev[A_dev.col], A_dev.indptr, (n, k), A_dev.nnz)
+    P_sp = sp.csr_matrix((phat.astype(np.float64), (coo.row, agg[coo.col])), shape=(n, k))
+    P_sp.sum_duplicates()
+    return A_dev, P_dev, k, (P_sp.T @ (A_sp.astype(np.float64) @ P_sp)).tocsr()
+
+
+def sparse_levels_run(device: str) -> dict:
+    """build_hierarchy(sparse_levels=1) on the GALERKIN_GRID^2 Poisson as a
+    float64 CSR on ``device``, and vcycle_solve of A x = A x* (x* from seed
+    1) to a relative residual of GALERKIN_SOLVE_RTOL."""
+    import torch
+    from mlamg_torch.mg.cycle import build_hierarchy, vcycle_solve
+    from mlamg_torch.ops.sparse import CSR
+
+    A = poisson2d(GALERKIN_GRID).astype(np.float64)
+    t0 = time.time()
+    h = build_hierarchy(CSR.from_scipy(A, dtype=torch.float64, device=device), alpha=0.1,
+                        sparse_levels=1)
+    build_s = time.time() - t0
+    b = A @ np.random.RandomState(1).randn(A.shape[0])
+    tol = GALERKIN_SOLVE_RTOL * float(np.linalg.norm(b))
+    t0 = time.time()
+    _, conv, err, iters = vcycle_solve(h, torch.from_numpy(b).to(device),
+                                       torch.zeros(A.shape[0], dtype=torch.float64,
+                                                   device=device),
+                                       res_tol=tol, max_iter=500)
+    solve_s = time.time() - t0
+    return {"A1": h.As[1], "P0": h.Ps[0], "build_s": build_s, "solve_s": solve_s,
+            "conv": conv, "iters": iters, "res": float(err[iters - 1]), "tol": tol}
+
+
+def galerkin_phase(A, path: dict, h_host) -> tuple[dict, int]:
+    """The sparse Galerkin setup on the card: the 600k hull's hierarchy with
+    rap_mode="device" beside the path phase's host-product one, its W(4,4)
+    solve, rap_learned, and build_hierarchy(sparse_levels=1)."""
+    import torch
+    from mlamg_torch.mg.amg_unstructured import (
+        build_unstructured_hierarchy, galerkin_patterns, host_prolongator, rap_learned,
+        rap_masked, uvcycle_solve,
+    )
+    from mlamg_torch.mg.interp import smoothed_aggregation
+    from mlamg_torch.ops.sparse import CSR
+    from mlamg_torch.ops.unstructured import LAUNCHES
+
+    t_phase = time.time()
+    dev = "cuda"
+    n = A.shape[0]
+    cycle = WCYCLE
+    prof: dict = {}
+    torch.cuda.synchronize()
+    base_bytes = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+
+    # --- the main path: counts set to 0 just before, read just after ---
+    LAUNCHES.clear()
+    t0 = time.time()
+    h, perm = build_unstructured_hierarchy(
+        A, alpha=0.2, max_levels=5, min_coarse=1200, lloyd_maxiter=5,
+        fmt="well", device=dev, profile_out=prof, rap_mode="device",
+    )
+    torch.cuda.synchronize()
+    setup_s = time.time() - t0
+    peak_bytes = torch.cuda.max_memory_allocated()
+    x0 = torch.from_numpy(np.random.RandomState(0).randn(n).astype(np.float32)).to(dev)
+    b = torch.zeros(n, dtype=torch.float32, device=dev)
+    x, conv, err, iters = uvcycle_solve(h, b, x0, res_tol=1e-6, max_iter=40, **cycle)
+    torch.cuda.synchronize()
+    launches = LAUNCHES["well_spmv"]
+    # ---------------------------------------------------------------------
+
+    hist = err[:iters].cpu().numpy()
+    expected = iters * (launches_per_cycle(h, cycle["nu"], cycle["gamma"]) + 1)
+    check(launches == expected,
+          f"galerkin: well_spmv launched {launches} times in the solve, expected {expected}")
+    check(bool(np.isfinite(hist).all()) and bool(torch.isfinite(x).all()),
+          "galerkin: solve produced non-finite values")
+    check(abs(conv - REF_CONV) <= CONV_TOL,
+          f"galerkin: conv factor {conv} not within {CONV_TOL} of {REF_CONV}")
+    check(iters <= MAX_CYCLES and hist[-1] <= 1e-6,
+          f"galerkin: {iters} W-cycles, final residual {hist[-1]} "
+          f"(want <= {MAX_CYCLES} to 1e-6)")
+    check(all(br in ("masked", "wide") for br in prof["rap_branch"]),
+          f"galerkin: branches {prof['rap_branch']}")
+    check(path["setup_profile_s"]["rap_branch"] == ["host"] * len(h_host.levels),
+          "galerkin: the path phase's rap_mode='auto' did not take the host product")
+
+    # level 0: the same aggregates; the device product's A_H against the
+    # host product's on the same (A, agg, omega), A_H being level 0's
+    # product before truncation (the stored level 1 is truncated and
+    # RCM-ordered by its own pattern)
+    lev_h, lev_d = h_host.levels[0], h.levels[0]
+    check(np.array_equal(perm, path["perm"]), "galerkin: the fine-level permutation differs")
+    check(lev_h.k == lev_d.k and torch.equal(lev_h.agg.cpu(), lev_d.agg.cpu()),
+          "galerkin: level 0's aggregates differ between the host and device products")
+    A0 = ell_to_scipy(lev_d.A)
+    agg0, k0 = lev_d.agg.cpu().numpy(), lev_d.k
+    a_width = int(np.diff(A0.indptr).max())
+    _, APpat, AHpat = galerkin_patterns(A0, agg0, k0)
+    A0_dev = CSR.from_scipy(A0, device=dev)
+    P0 = smoothed_aggregation(A0_dev, lev_d.agg, k0, omega=lev_d.omegas[0])
+    level0 = partial(
+        rap_masked, A0_dev, P0, CSR.from_scipy(APpat, device=dev),
+        CSR.from_scipy(AHpat, device=dev), a_width=a_width, p_width=a_width,
+        pt_width=int(np.bincount(agg0[A0.tocoo().col], minlength=k0).max()),
+        ap_width=int(np.diff(APpat.indptr).max()))
+    torch.cuda.synchronize()
+    t0 = time.time()
+    AH_dev = level0().to_scipy()
+    level0_rap_s = time.time() - t0
+    # where the product's time goes: device ops, busy time and idle share
+    level0_trace = device_trace(level0, iters=1, kernel="index", warmup=False, cpu=False)
+    P_host = host_prolongator(A0, agg0, k0, lev_d.Dinv.cpu().numpy(), lev_d.omegas)
+    AH_host = (P_host.T @ (A0 @ P_host)).tocsr()
+    ah_gap = float(abs(AH_dev - AH_host).max())
+    ah_scale = float(abs(AH_host).max())
+    check(ah_gap <= GALERKIN_AH_RTOL * ah_scale,
+          f"galerkin: level 0 A_H device vs host {ah_gap} > {GALERKIN_AH_RTOL} * {ah_scale}")
+    levels = []
+    for l, (lh, ld, br, rl) in enumerate(zip(h_host.levels, h.levels, prof["rap_branch"],
+                                             prof["rap_levels"])):
+        same_n = lh.agg.numel() == ld.agg.numel()
+        levels.append({
+            "level": l, "n": ld.agg.numel(), "k_host": lh.k, "k_device": ld.k,
+            "agg_entries_differing": (int((lh.agg != ld.agg).sum()) if same_n else None),
+            "branch": br, **rl,
+            "host_rap_s": path["setup_profile_s"]["rap_levels"][l]["rap_s"],
+        })
+
+    # rap_learned: a random P-hat on A's coordinates.  JAX's test draws random
+    # aggregates (n // 10 of them) on its 1500-node hull: the same here on
+    # that hull.  At 600k random aggregates give a near-dense coarse pattern,
+    # so level 0 keeps its own (local) Lloyd aggregates, as FullAggNet's are
+    rng = np.random.RandomState(5)
+    learned = {}
+    from mlamg_torch.data import Grid
+
+    small = Grid.random_2d_unstructured(1500, seed=3).A.astype(np.float32)
+    for label, A_l, agg_l in (("hull1500_random_agg", small,
+                               rng.randint(0, 150, size=1500).astype(np.int64)),
+                              ("hull600k_level0_lloyd_agg", A0, agg0.astype(np.int64))):
+        A_dev, P_dev, k_l, oracle = learned_p(A_l, agg_l, rng)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        got = rap_learned(A_dev, P_dev, A_l, agg_l, k_l).to_scipy()
+        seconds = time.time() - t0
+        excess = allclose_sparse(got.astype(np.float64), oracle, GALERKIN_LEARNED_TOL, 0.0)
+        check(excess <= GALERKIN_LEARNED_TOL,
+              f"galerkin: rap_learned {label} misses the float64 oracle by {excess}")
+        learned[label] = {"n": A_l.shape[0], "k": k_l, "nnz": int(got.nnz), "seconds": seconds,
+                          "excess_over_rtol": excess,
+                          "max_abs_err": float(abs(got - oracle).max()),
+                          "scale": float(abs(oracle).max())}
+    del h, A0_dev, P0
+
+    # build_hierarchy(sparse_levels=1): card against CPU in float64
+    card, cpu = sparse_levels_run("cuda"), sparse_levels_run("cpu")
+    A1c, A1h = card["A1"], cpu["A1"]
+    check(isinstance(A1c, CSR) and isinstance(card["P0"], CSR),
+          "galerkin: sparse_levels=1 kept no CSR coarse level")
+    for name in ("row", "col", "indptr"):
+        check(torch.equal(getattr(A1c, name).cpu(), getattr(A1h, name)),
+              f"galerkin: sparse coarse level's {name} differs card vs CPU")
+    s_gap = float((A1c.data.cpu() - A1h.data).abs().max())
+    s_scale = float(A1h.data.abs().max())
+    check(s_gap <= GALERKIN_SPARSE_RTOL * s_scale,
+          f"galerkin: sparse coarse level card vs CPU {s_gap} > "
+          f"{GALERKIN_SPARSE_RTOL} * {s_scale}")
+    for run, dev_name in ((card, "card"), (cpu, "CPU")):
+        check(run["res"] <= run["tol"],
+              f"galerkin: sparse-level vcycle_solve on the {dev_name}: residual "
+              f"{run['res']} > {run['tol']} after {run['iters']} cycles")
+
+    host_prof = path["setup_profile_s"]
+    return {
+        "phase": "galerkin",
+        "n": n,
+        "setup_s": {"host": path["setup_s"], "device": setup_s},
+        "setup_profile_s": {"host": host_prof, "device": prof},
+        "device_setup_peak_bytes": peak_bytes,
+        "device_setup_peak_over_start_bytes": peak_bytes - base_bytes,
+        "levels": levels,
+        "level0_ah_max_abs_gap": ah_gap,
+        "level0_ah_scale": ah_scale,
+        "level0_masked_rap_s": level0_rap_s,
+        "level0_masked_rap_trace": level0_trace,
+        "conv": conv,
+        "iters": iters,
+        "residual_history": [float(v) for v in hist],
+        "well_spmv_launches": launches,
+        "rap_learned": learned,
+        "sparse_levels": {
+            "grid": GALERKIN_GRID,
+            "coarse_n": A1h.shape[0], "coarse_nnz": int(A1h.mask.sum()),
+            "coarse_capacity": A1h.nnz_pad,
+            "card_vs_cpu_max_abs": s_gap, "scale": s_scale,
+            **{f"{key}_{dev_name}": run[key] for run, dev_name in ((card, "card"), (cpu, "cpu"))
+               for key in ("build_s", "solve_s", "conv", "iters", "res")},
+        },
+        "seconds": time.time() - t_phase,
+    }, launches
 
 
 def poisson2d(nx: int):
@@ -1931,7 +2183,7 @@ def main() -> None:
     kernel = kernel_phase(Ap, rng, flush)
     emit({"phase": "kernels", **{k: kernel[k] for k in ("max_rel_err", "ms", "warm_ms")}})
     path, launches, level_errs, h = path_phase(A, rng)
-    emit(path)
+    emit({key: v for key, v in path.items() if key != "perm"})
     levels = level_table(h, flush)
     emit({"phase": "levels", "levels": levels,
           "launches_x_warm_ms_per_wcycle": sum(r["launches_per_cycle"] * r["warm_us"]
@@ -1939,7 +2191,11 @@ def main() -> None:
           "trace_well_spmv_ms_per_wcycle": path["wcycle_trace"]["well_spmv_ms"],
           "fine_level_gather_spans": gather_spans(h.levels[0].A)})
     emit({"phase": "sweeps", **sweep_phase(h, flush)})
-    del h, flush
+    del flush
+    galerkin, galerkin_launches = galerkin_phase(A, path, h)
+    emit(galerkin)
+    kernel["launches_galerkin"] = galerkin_launches
+    del h
     emit(small_cycle_phase())
     kernel["launches"] = launches
     kernel["max_abs_err"] = max(kernel["max_abs_err"], *(e[0] for e in level_errs))

@@ -2,9 +2,23 @@
 (counterpart of ``mlamg_tpu/mg/amg_unstructured.py``).
 
 Setup per level: RCM order -> strength -> Lloyd aggregation -> SA omega
-from a Gershgorin bound -> Galerkin product A_H = P^T A P on the host
-(scipy).  Level operators are stored RCM-ordered as :class:`WindowedELL`
+from a Gershgorin bound -> Galerkin product A_H = P^T A P -> truncation.
+Level operators are stored RCM-ordered as :class:`WindowedELL`
 (``fmt="well"``, the CUDA kernel's layout) or :class:`CSR`.
+
+The Galerkin product runs in scipy on the host, or on the device as two
+pattern-masked products (``rap_mode="device"``): for smoothed aggregation
+the coarse pattern is known before the numbers,
+
+    P = S T,  S = I - omega D^-1 A  (A's pattern),  T = aggregation
+    pattern(P)   = A's pattern with columns mapped through agg
+    pattern(AP)  = pattern(A) @ pattern(P)            (host boolean product)
+    pattern(A_H) = pattern(P)^T @ pattern(AP)
+
+so :func:`rap_masked` contracts each known output entry from fixed-width
+rows (``ops.matmul.spgemm_masked``) with no sort, in chunks that bound its
+memory.  :func:`rap_learned` does the same for a learned P on A's
+coordinates.
 
 The cycle never materializes P: interpolation and restriction apply the
 factors directly,
@@ -95,6 +109,69 @@ def truncate_lump(A_sp, theta: float, mode: str = "lump_clip"):
         A2 = (A2 + sp.diags(lump.astype(A_sp.dtype))).tocsr()
     A2.sort_indices()
     return A2
+
+
+# Bytes of one step's (chunk, b_width) gather in spgemm_masked, counted at 8
+# bytes an element: the JAX package's 16 MB per buffer (2^22 four-byte
+# elements of its (chunk, a_width, b_width) expansion).
+CHUNK_BYTES = 1 << 24
+# Above this many (pt_width * ap_width) expansion slots per coarse entry a
+# level's Galerkin product runs in scipy on the host, as in the JAX package.
+WIDE_SLOTS = 32768
+
+
+def _auto_chunk(wb: int, budget: int = CHUNK_BYTES) -> int:
+    """Pattern entries per chunk of a masked product, keeping each step's
+    (chunk, wb) gather near ``budget`` bytes at 8 bytes an element."""
+    return max(256, budget // (8 * max(wb, 1)))
+
+
+def rap_masked(A_dev: CSR, P_dev: CSR, AP_pat: CSR, AH_pat: CSR, *, a_width: int,
+               p_width: int, pt_width: int, ap_width: int) -> CSR:
+    """A_H = P^T A P over host-computed patterns, on the operands' device,
+    with no sort.  The widths are host-known row widths: A's rows
+    (``a_width``), P's rows (``p_width``), P's columns (``pt_width``,
+    duplicates counted) and AP's rows (``ap_width``)."""
+    AP = matmul.spgemm_masked(A_dev, P_dev, AP_pat, a_width=a_width, b_width=p_width,
+                              chunk=_auto_chunk(p_width))
+    return matmul.spgemm_masked(matmul.transpose(P_dev), AP, AH_pat, a_width=pt_width,
+                                b_width=ap_width, chunk=_auto_chunk(ap_width))
+
+
+def host_prolongator(A_sp, agg: np.ndarray, k: int, Dinv: np.ndarray, omegas):
+    """SA's P = prod_i (I - w_i D^-1 A) T in scipy (float32), the host
+    branch's prolongator: T the (n, k) aggregation of ``agg``."""
+    import scipy.sparse as sp
+
+    n = A_sp.shape[0]
+    P = sp.csr_matrix((np.ones(n, np.float32), (np.arange(n), agg)), shape=(n, k))
+    DinvA = (sp.diags(Dinv) @ A_sp).tocsr()
+    for w in np.asarray(omegas, np.float64):
+        P = (P - np.float32(w) * (DinvA @ P)).tocsr()
+    return P
+
+
+def _pattern_csr(pat, device) -> CSR:
+    return CSR.from_scipy(pat, dtype=torch.float32, device=device)
+
+
+def rap_learned(A_dev: CSR, P_dev: CSR, A_sp, agg: np.ndarray, k: int) -> CSR:
+    """A_H = P^T A P for a learned P on A's coordinates with columns mapped
+    through ``agg`` (FullAggNet's P = P-hat Agg keeps A's indptr).  Its
+    pattern is known from ``A_sp`` and ``agg`` without its values, so the
+    product is :func:`rap_masked`; duplicate (row, agg[col]) coordinates of
+    P sum, as scipy sums them."""
+    import scipy.sparse as sp
+
+    A_sp = sp.csr_matrix(A_sp)
+    _, APpat, AHpat = galerkin_patterns(A_sp, agg, k, smooth_steps=1)
+    a_width = int(np.diff(A_sp.indptr).max())
+    return rap_masked(
+        A_dev, P_dev, _pattern_csr(APpat, A_dev.device), _pattern_csr(AHpat, A_dev.device),
+        a_width=a_width, p_width=a_width,
+        pt_width=int(np.bincount(agg[A_sp.tocoo().col], minlength=k).max()),
+        ap_width=int(np.diff(APpat.indptr).max()),
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -256,23 +333,38 @@ def build_unstructured_hierarchy(
     coarse_method: str = "inverse",
     fmt: str | None = None,
     block_rows: int = 8,
+    verbose: bool = False,
     profile_out: dict | None = None,
     rap_mode: str = "auto",
+    setup_device: str = "auto",
     device=None,
 ):
     """SA multilevel setup for a symmetric scipy operator.
 
     Per level: RCM order -> strength -> Lloyd aggregation -> SA omegas from
-    a Gershgorin bound -> host Galerkin RAP -> truncation.  ``fmt`` is
+    a Gershgorin bound -> Galerkin product -> truncation.  ``fmt`` is
     ``"well"`` (default on CUDA) or ``"csr"`` (default on the CPU).
 
-    Setup runs on ``device``: strength and Lloyd on the hierarchy's device,
-    the Galerkin product in scipy (``rap_mode="auto"``; the device product,
-    ``"device"``, is not ported yet and raises).  With
-    ``seed_mode="random"``, each level splits a key chain that starts at
-    ``PRNGKey(seed)`` and draws its Lloyd seeds from the split-off key, as
-    the JAX package does.
-    ``profile_out``, when given, receives seconds per setup stage.
+    ``rap_mode`` picks the Galerkin product: ``"host"`` forms P and
+    P^T A P in scipy; ``"device"`` forms P on the hierarchy's device and
+    the product there by :func:`rap_masked`, except on a level whose
+    pt_width * ap_width exceeds ``WIDE_SLOTS``, where P is read back and
+    the product runs in scipy, as in the JAX package; ``"auto"`` is the
+    host product at every size (the JAX package's 30M-nnz crossover was
+    measured on a TPU, where each masked-product program cost tens of
+    seconds of compile).  ``setup_device`` places strength and Lloyd:
+    ``"cpu"`` on the CPU (the operator is then copied to the hierarchy's
+    device for a device product), ``"default"`` and ``"auto"`` on the
+    hierarchy's device (the JAX package's CPU rule for ``"auto"`` exists
+    for a remote TPU's compile cost).  With ``seed_mode="random"``, each
+    level splits a key chain that starts at ``PRNGKey(seed)`` and draws its
+    Lloyd seeds from the split-off key, as the JAX package does.
+
+    ``profile_out``, when given, receives seconds per setup stage,
+    ``rap_branch`` (per level: ``"host"``, ``"masked"`` or ``"wide"``) and
+    ``rap_levels`` (per level: ``pt_width``, ``ap_width`` (-1 on the host
+    branch) and ``rap_s``).  ``verbose`` prints a line per level and the
+    profile.
 
     Returns (hierarchy, perm): solve in permuted space, i.e. x =
     unpermute(solution of (P A P^T) y = b[perm]).
@@ -285,14 +377,17 @@ def build_unstructured_hierarchy(
     dev = resolve_device(device)
     if fmt is None:
         fmt = "well" if dev.type == "cuda" else "csr"
-    if rap_mode != "auto":
-        raise NotImplementedError(
-            f"rap_mode={rap_mode!r}: only the host Galerkin product ('auto') is "
-            "ported; the pattern-masked device product needs spgemm_masked "
-            "(ROADMAP.md Queue 1 item 3)"
-        )
+    # each "auto" names one of the other two choices: the host product, and
+    # the hierarchy's device
+    rap_on_device = {"host": False, "auto": False, "device": True}.get(rap_mode)
+    if rap_on_device is None:
+        raise ValueError(f"unknown rap_mode: {rap_mode}")
+    setup_on_cpu = {"default": False, "auto": False, "cpu": True}.get(setup_device)
+    if setup_on_cpu is None:
+        raise ValueError(f"unknown setup_device: {setup_device}")
     if seed_mode not in ("stride", "random"):
         raise ValueError(f"unknown seed_mode: {seed_mode}")
+    setup_dev = torch.device("cpu") if setup_on_cpu else dev
 
     A_sp = sp.csr_matrix(A_sp).astype(np.float32)
     if (abs(A_sp - A_sp.T) > 1e-6 * abs(A_sp).max()).nnz:
@@ -302,6 +397,8 @@ def build_unstructured_hierarchy(
         )
 
     prof: dict = {}
+    rap_branch: list = []
+    rap_levels: list = []
 
     def _tick(label, t0):
         prof[label] = prof.get(label, 0.0) + (time.time() - t0)
@@ -333,10 +430,10 @@ def build_unstructured_hierarchy(
         if n <= min_coarse:
             break
         k = int(np.ceil(alpha * n))
+        a_width = int(np.diff(level_A.indptr).max())
 
-        A_setup = CSR.from_scipy(level_A, dtype=torch.float32, device=dev)
-        C = strength_measure(A_setup, strength_kind,
-                             width=int(np.diff(level_A.indptr).max()))
+        A_setup = CSR.from_scipy(level_A, dtype=torch.float32, device=setup_dev)
+        C = strength_measure(A_setup, strength_kind, width=a_width)
         key, sub = prng.split(key)
         if seed_mode == "stride":
             # the level is RCM-ordered, so an index stride is a spatially
@@ -349,6 +446,12 @@ def build_unstructured_hierarchy(
                 C, ratio=alpha, maxiter=lloyd_maxiter, key=sub
             )
         agg = agg_id.cpu().numpy().copy()
+        if not rap_on_device:
+            A_dev = None
+        elif setup_dev != dev:
+            A_dev = CSR.from_scipy(level_A, dtype=torch.float32, device=dev)
+        else:
+            A_dev = A_setup
         t = _tick("strength_lloyd", t)
         un = agg >= k
         if un.any():
@@ -380,16 +483,18 @@ def build_unstructured_hierarchy(
             omegas = (np.float32(1.0) / roots).astype(np.float32)
         t = _tick("sa_omegas", t)
 
-        T_host = sp.csr_matrix(
-            (np.ones(n, np.float32), (np.arange(n), agg)), shape=(n, k)
-        )
-        DinvA = (sp.diags(Dinv) @ level_A).tocsr()
-        Psp = T_host
-        for w in omegas.astype(np.float64):
-            Psp = (Psp - np.float32(w) * (DinvA @ Psp)).tocsr()
-        t = _tick("p_smooth", t)
-        AH_sp = (Psp.T @ (level_A @ Psp)).tocsr()
-        t = _tick("rap", t)
+        if A_dev is None:
+            Psp = host_prolongator(level_A, agg, k, Dinv, omegas)
+            t = _tick("p_smooth", t)
+            AH_sp = (Psp.T @ (level_A @ Psp)).tocsr()
+            branch, pt_width, ap_width = "host", -1, -1
+            rap_s = time.time() - t
+            t = _tick("rap", t)
+        else:
+            AH_sp, branch, pt_width, ap_width, rap_s, t = _device_rap_level(
+                level_A, A_dev, agg, k, a_width, omegas, Dinv, smooth_steps, _tick, t)
+        rap_branch.append(branch)
+        rap_levels.append({"pt_width": pt_width, "ap_width": ap_width, "rap_s": rap_s})
         AH_sp.sum_duplicates()
         AH_sp.eliminate_zeros()
         AH_sp = truncate_lump(AH_sp, trunc_theta)
@@ -397,6 +502,10 @@ def build_unstructured_hierarchy(
 
         levels.append(dict(A=level_A, Dinv=Dinv, agg=agg, omegas=omegas,
                            lmax=lmax, k=k))
+        if verbose:
+            print(f"level {lvl}: n={n} nnz={level_A.nnz} -> k={k} nnz(A_H)={AH_sp.nnz} "
+                  f"(widths a={a_width} pt={pt_width} ap={ap_width}) [{branch} rap]",
+                  flush=True)
         level_A = AH_sp
 
     t = time.time()
@@ -409,7 +518,87 @@ def build_unstructured_hierarchy(
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     _tick("coarse_factor", t)
+    if verbose:
+        print(f"setup profile (s): {dict(sorted(prof.items(), key=lambda kv: -kv[1]))}",
+              flush=True)
     if profile_out is not None:
-        profile_out.update(prof)
+        profile_out.update(prof, rap_branch=rap_branch, rap_levels=rap_levels)
     return UHierarchy(ulevels, coarse), perm0
 
+
+def _device_rap_level(level_A, A_dev: CSR, agg, k: int, a_width: int, omegas, Dinv,
+                      smooth_steps: int, _tick, t):
+    """One level of the ``rap_mode="device"`` path: P on the device, then
+    its Galerkin product by :func:`rap_masked`, or in scipy on a wide
+    level.  Returns (AH_sp, branch, pt_width, ap_width, rap seconds, t)."""
+    import scipy.sparse as sp
+    from mlamg_torch.mg.interp import smoothed_aggregation
+
+    n = level_A.shape[0]
+    dev = A_dev.device
+    Ppat, APpat, AHpat = galerkin_patterns(level_A, agg, k, smooth_steps=smooth_steps)
+    t = _tick("patterns_host", t)
+
+    P_dev = smoothed_aggregation(A_dev, torch.from_numpy(agg).to(dev), k,
+                                 omega=float(omegas[0]))
+    p_width = a_width
+    if smooth_steps > 1:
+        # widen P step by step, P_{j+1} = P_j - w_{j+1} D^-1 A P_j, on the
+        # host-known patterns B^j P1pat; P_j's entries are added in at their
+        # positions in the wider pattern (found by searchsorted on the host)
+        coo0 = level_A.tocoo()
+        pat_j = sp.csr_matrix(
+            (np.ones(level_A.nnz, np.float64), (coo0.row, agg[coo0.col])), shape=(n, k))
+        pat_j.sum_duplicates()
+        pat_j.data[:] = 1.0
+        pat_j.sort_indices()
+        Bpat = sp.csr_matrix(
+            (np.ones(level_A.nnz, np.float64), level_A.indices, level_A.indptr), shape=(n, n))
+        Dinv_dev = torch.from_numpy(Dinv).to(dev)
+        # P1 lives on A's (row, agg[col]) coordinates, duplicates included
+        keys_j = coo0.row.astype(np.int64) * (k + 1) + agg[coo0.col].astype(np.int64)
+        for j in range(1, smooth_steps):
+            pat_next = (Bpat @ pat_j).tocsr()
+            pat_next.data[:] = 1.0
+            pat_next.sort_indices()
+            nxt = pat_next.tocoo()
+            keys_next = nxt.row.astype(np.int64) * (k + 1) + nxt.col.astype(np.int64)
+            pj_width = int(np.diff(pat_j.indptr).max()) if j > 1 else a_width
+            APj = matmul.spgemm_masked(A_dev, P_dev, _pattern_csr(pat_next, dev),
+                                       a_width=a_width, b_width=pj_width,
+                                       chunk=_auto_chunk(pj_width))
+            rows = APj.row.clamp(max=n - 1)
+            base = torch.where(APj.mask, -float(omegas[j]) * Dinv_dev[rows] * APj.data,
+                               torch.zeros_like(APj.data))
+            # P_j's padded tail slots go to a dump slot past the end
+            pos = np.full(P_dev.nnz_pad, base.shape[0], np.int64)
+            pos[:keys_j.shape[0]] = np.searchsorted(keys_next, keys_j)
+            data = torch.cat([base, base.new_zeros(1)]).index_add(
+                0, torch.from_numpy(pos).to(dev), P_dev.data)[:-1]
+            P_dev = APj.with_data(data)
+            pat_j, keys_j = pat_next, keys_next
+        p_width = int(np.diff(pat_j.indptr).max())
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t = _tick("p_smooth", t)
+
+    if smooth_steps == 1:
+        pt_width = int(np.bincount(agg[level_A.tocoo().col], minlength=k).max())
+    else:
+        pt_width = int(np.diff(Ppat.tocsc().indptr).max())
+    ap_width = int(np.diff(APpat.indptr).max())
+    if pt_width * ap_width <= WIDE_SLOTS:
+        AH = rap_masked(A_dev, P_dev, _pattern_csr(APpat, dev), _pattern_csr(AHpat, dev),
+                        a_width=a_width, p_width=p_width, pt_width=pt_width,
+                        ap_width=ap_width)
+        AH_sp, branch = AH.to_scipy(), "masked"
+    else:
+        # deep levels grow wide aggregate supports: most of the masked
+        # product's pt x ap slots per coarse entry would be padding, and
+        # the level is small enough for scipy
+        Psp = P_dev.to_scipy()
+        Psp.sum_duplicates()
+        AH_sp, branch = (Psp.T @ level_A @ Psp).tocsr(), "wide"
+    rap_s = time.time() - t
+    t = _tick("rap", t)
+    return AH_sp, branch, pt_width, ap_width, rap_s, t

@@ -8,10 +8,9 @@ test reads each iteration's norm on the host.
 
 Ported: ``twolevel_solve`` with weighted Jacobi (fused or not),
 Chebyshev (``lmax`` by power iteration unless given) and multicolor
-Gauss-Seidel, ``Hierarchy``, ``build_hierarchy`` (dense coarse levels),
-``vcycle`` and ``vcycle_solve``, for dense, sparse (CSR/ELL) and factored
-prolongators.  Not ported yet (``ROADMAP.md``): ``build_hierarchy``'s
-sparse coarse levels (``sparse_levels``).
+Gauss-Seidel, ``Hierarchy``, ``build_hierarchy`` (dense coarse levels, and
+sparse ones by ``rap_fused``), ``vcycle`` and ``vcycle_solve``, for dense,
+sparse (CSR/ELL) and factored prolongators.
 """
 
 from __future__ import annotations
@@ -27,7 +26,7 @@ from mlamg_torch.graph.lloyd import lloyd_aggregation
 from mlamg_torch.graph.strength import power_iteration_lmax, strength_measure
 from mlamg_torch.mg.coarse import CoarseSolver
 from mlamg_torch.mg.factored import BilinearP2D, FactoredSA, coarse_operator_factored
-from mlamg_torch.mg.interp import sa_interpolation_dense
+from mlamg_torch.mg.interp import sa_interpolation_dense, smoothed_aggregation
 from mlamg_torch.mg.smoothers import _dinv, chebyshev, jacobi, multicolor_gauss_seidel
 from mlamg_torch.ops import matmul
 from mlamg_torch.ops.dia import DIA, dia_jacobi_operator
@@ -198,28 +197,27 @@ class Hierarchy:
 def build_hierarchy(A: CSR, *, alpha: float = 0.1, max_levels: int = 3, min_coarse: int = 64,
                     strength_kind: str = "abs", width: int | None = None, key=None,
                     sparse_levels: int = 0) -> Hierarchy:
-    """Aggregation setup: strength -> Lloyd -> Jacobi-SA dense P -> dense
+    """Aggregation setup: strength -> Lloyd -> Jacobi-SA P -> Galerkin
     RAP, level by level while a level has more than ``min_coarse`` rows;
-    every coarse operator is a dense tensor and the coarsest is LU-factored.
+    the coarsest operator is LU-factored (densified first if sparse).
 
-    Lloyd's keys come from ``key`` (default ``PRNGKey(0)``), split once per
-    level, as the JAX package splits them.  A dense level's strength is
-    taken on its CSR (``width`` is its row-degree bound for the measures
-    that need one).  ``sparse_levels > 0`` (sparse Galerkin products) is
-    not ported yet and raises.
+    The first ``sparse_levels`` coarsenings of a CSR level keep the coarse
+    operator a CSR: P is the sparse ``smoothed_aggregation`` and
+    ``rap_fused`` forms P^T A P with capacity min(4 nnz_pad, k^2),
+    doubled and formed again while it overflows.  The other levels use a
+    dense P and a dense coarse operator.  Lloyd's keys come from ``key``
+    (default ``PRNGKey(0)``), split once per level, as the JAX package
+    splits them.  A dense level's strength is taken on its CSR (``width``
+    is its row-degree bound for the measures that need one).
     """
     import scipy.sparse as sp
 
-    if sparse_levels:
-        raise NotImplementedError(
-            "build_hierarchy: sparse_levels needs rap_fused, which is not ported yet "
-            "(ROADMAP.md Queue 1 item 3)")
     key = prng.PRNGKey(0) if key is None else key
     As: list = [A]
     Ps: list = []
     Dinvs: list = []
     level_A = A
-    for _ in range(max_levels - 1):
+    for lvl in range(max_levels - 1):
         n = level_A.shape[0]
         if n <= min_coarse:
             break
@@ -235,10 +233,21 @@ def build_hierarchy(A: CSR, *, alpha: float = 0.1, max_levels: int = 3, min_coar
         key, sub = prng.split(key)
         agg_id, _, _ = lloyd_aggregation(C, ratio=alpha, key=sub)
         Dinvs.append(1.0 / torch.where(d != 0, d, torch.ones_like(d)))
-        P = sa_interpolation_dense(level_A, agg_id, k)
+        if lvl < sparse_levels and isinstance(level_A, CSR):
+            P = smoothed_aggregation(level_A, agg_id, k)
+            nnz_out = min(4 * level_A.nnz_pad, k * k)
+            while True:  # capacity from a heuristic: never truncate silently
+                A_next, overflow = matmul.rap_fused(level_A, P, k=k, nnz_out=nnz_out,
+                                                    p_width=lvl_width, return_overflow=True)
+                if not bool(overflow):
+                    break
+                nnz_out *= 2
+        else:
+            P = sa_interpolation_dense(level_A, agg_id, k)
+            A_next = matmul.rap_dense(level_A, P)
         Ps.append(P)
-        level_A = matmul.rap_dense(level_A, P)
-        As.append(level_A)
+        As.append(A_next)
+        level_A = A_next
 
     A_c = As[-1]
     coarse = CoarseSolver.factor(A_c if isinstance(A_c, torch.Tensor) else A_c.todense())

@@ -9,18 +9,19 @@ I - w_i D^-1 A sharing A's diagonals and T the aggregation operator:
 
 S^T is kept as its own DIA (:func:`dia_transpose`), so restriction is also
 a forward SpMV: on the card every factor goes through the ``dia_spmv``
-kernel.  :class:`BilinearP2D` is the geometric side-2 prolongator, applied
-by strided slices on the 2-D grid view.
+kernel.  A CSR operator (or a DIA without a stored main diagonal) gets CSR
+factors, S^T by :func:`~mlamg_torch.ops.matmul.transpose`.
+:class:`BilinearP2D` is the geometric side-2 prolongator, applied by
+strided slices on the 2-D grid view.
 
-Ported for a DIA operand with :class:`BoxAgg2D` aggregates.  Not ported
-yet (``ROADMAP.md``): ``AggOp`` (aggregates from an assignment vector),
-and the CSR branch of ``factored_sa`` (``_csr_jacobi_smoother``), both in
-``ROADMAP.md`` Queue 1 item 3.
+T is structured box aggregation (:class:`BoxAgg2D`) or any assignment
+vector (:class:`AggOp`).
 """
 
 from __future__ import annotations
 
 import dataclasses
+from functools import cached_property
 from typing import Tuple
 
 import numpy as np
@@ -31,6 +32,7 @@ from mlamg_torch.mg.interp import sa_omega
 from mlamg_torch.mg.smoothers import _dinv
 from mlamg_torch.ops import matmul
 from mlamg_torch.ops.dia import DIA, dia_jacobi_operator
+from mlamg_torch.ops.sparse import CSR, segment_slots, slot_sum
 
 
 def dia_transpose(A: DIA) -> DIA:
@@ -95,6 +97,35 @@ class BoxAgg2D:
         V = v.reshape(ncy, self.sy, self.nx, *c_shape).sum(1)
         V = V.reshape(ncy, ncx, self.sx, *c_shape).sum(2)
         return V.reshape(self.k, *c_shape)
+
+
+@dataclasses.dataclass(frozen=True)
+class AggOp:
+    """Aggregation by an assignment vector: node i -> aggregate agg_id[i];
+    ``agg_id[i] >= k`` marks an unassigned node, a zero row of T.  T e is
+    a gather; T^T v sums each aggregate's entries in node order."""
+
+    agg_id: torch.Tensor  # (n,) int64
+    n: int
+    k: int
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        return (self.n, self.k)
+
+    @cached_property
+    def _slots(self) -> torch.Tensor:
+        return segment_slots(self.agg_id.clamp(max=self.k), self.k)
+
+    def interp(self, e: torch.Tensor) -> torch.Tensor:
+        """T e; e is (k,) or (k, c)."""
+        out = e[self.agg_id.clamp(0, self.k - 1)]
+        keep = self.agg_id < self.k
+        return torch.where(keep[:, None] if e.ndim > 1 else keep, out, torch.zeros_like(out))
+
+    def restrict(self, v: torch.Tensor) -> torch.Tensor:
+        """T^T v; v is (n,) or (n, c)."""
+        return slot_sum(v, self._slots)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -192,13 +223,14 @@ class BilinearP2D:
 class FactoredSA:
     """P = S_s ... S_1 T applied by its factors (never materialized).
 
-    ``Ss[i]`` is the DIA factor I - w_i D^-1 A, ``Sts[i]`` its precomputed
-    transpose, ``T`` the :class:`BoxAgg2D`.  The factors commute (all
-    polynomials in D^-1 A), so application order is free."""
+    ``Ss[i]`` is the factor I - w_i D^-1 A (a DIA or a CSR), ``Sts[i]``
+    its precomputed transpose, ``T`` a :class:`BoxAgg2D` or
+    :class:`AggOp`.  The factors commute (all polynomials in D^-1 A), so
+    application order is free."""
 
-    Ss: Tuple[DIA, ...]
-    Sts: Tuple[DIA, ...]
-    T: BoxAgg2D
+    Ss: tuple
+    Sts: tuple
+    T: object
 
     @property
     def shape(self) -> Tuple[int, int]:
@@ -256,21 +288,33 @@ def _chebyshev_weights(lmax: float, smooth_steps: int, dtype: torch.dtype):
     return [float(w) for w in dt(1.0) / roots]
 
 
-def factored_sa(A: DIA, T: BoxAgg2D, omega=None, power_iters: int = 30,
+def _csr_jacobi_smoother(A: CSR, Dinv: torch.Tensor, omega) -> CSR:
+    """(I - omega D^-1 A) on A's pattern, as a CSR (the identity lands on
+    the stored main diagonal only)."""
+    n = A.shape[0]
+    live = A.mask
+    data = -omega * Dinv[A.row.clamp(max=n - 1)] * A.data
+    data = torch.where(live & (A.row == A.col), data + 1.0, data)
+    data = torch.where(live, data, torch.zeros_like(data))
+    return CSR(data, A.row, A.col, A.indptr, A.shape, A.nnz)
+
+
+def factored_sa(A, T, omega=None, power_iters: int = 30,
                 smooth_steps: int = 1, lmax=None) -> FactoredSA:
-    """Factored SA prolongator of a DIA operator over box aggregates.
+    """Factored SA prolongator of a DIA or CSR operator over the
+    aggregates ``T`` (:class:`BoxAgg2D` or :class:`AggOp`).
 
     With ``smooth_steps == 1`` one factor of weight ``omega`` (default
     (4/3) / rho(D^-1 A) by ``power_iters`` power iterations, ``sa_omega``);
     with s > 1 the weights are the inverse Chebyshev roots over
     [lmax/15, lmax] (``lmax`` defaults to rho(D^-1 A) from the same power
     iteration), so prod_i (1 - w_i t) is the minimax degree-s polynomial
-    with p(0) = 1.  ``omega`` may also be a sequence of weights."""
-    if not isinstance(A, DIA):
-        raise NotImplementedError(
-            "factored_sa: only a DIA operator is ported; the CSR branch is "
-            "listed in ROADMAP.md Queue 1 item 3"
-        )
+    with p(0) = 1.  ``omega`` may also be a sequence of weights.  A DIA
+    factor keeps A's diagonals; a CSR operator, or a DIA without a stored
+    main diagonal (read back as a float32 CSR, as the JAX package does),
+    gives CSR factors."""
+    if not isinstance(A, (DIA, CSR)):
+        raise TypeError(f"factored_sa: unsupported operator {type(A).__name__}")
     Dinv = _dinv(A)
     if omega is None:
         if smooth_steps == 1:
@@ -286,14 +330,15 @@ def factored_sa(A: DIA, T: BoxAgg2D, omega=None, power_iters: int = 30,
 
     Ss, Sts = [], []
     for w in omegas:
-        S = dia_jacobi_operator(A, Dinv, w)
-        if S is None:
-            raise NotImplementedError(
-                "factored_sa: a DIA without a stored main diagonal needs the "
-                "CSR branch, not ported yet (ROADMAP.md Queue 1 item 3)"
-            )
+        S = dia_jacobi_operator(A, Dinv, w) if isinstance(A, DIA) else None
+        if S is not None:
+            St = dia_transpose(S)
+        else:
+            A_csr = A if isinstance(A, CSR) else CSR.from_scipy(A.to_scipy(), device=A.device)
+            S = _csr_jacobi_smoother(A_csr, Dinv, w)
+            St = matmul.transpose(S)
         Ss.append(S)
-        Sts.append(dia_transpose(S))
+        Sts.append(St)
     return FactoredSA(tuple(Ss), tuple(Sts), T)
 
 

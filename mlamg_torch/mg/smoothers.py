@@ -65,7 +65,18 @@ def chebyshev(A, b, x, lmax: float, lmin_frac: float = 0.25, degree: int = 3,
 def greedy_coloring(A_scipy) -> np.ndarray:
     """Host-side greedy graph colouring in row order: each row takes the
     smallest colour none of its lower-numbered neighbours has.  Returns (n,)
-    int32 colours."""
+    int32 colours: from the C++ loop of ``native/mlamg_native.cpp`` where
+    it is built, else from :func:`greedy_coloring_py` (the same colours)."""
+    from mlamg_torch import native
+
+    if native.available():
+        return native.greedy_coloring(A_scipy)[0]
+    return greedy_coloring_py(A_scipy)
+
+
+def greedy_coloring_py(A_scipy) -> np.ndarray:
+    """:func:`greedy_coloring`'s loop in Python, for when the C++ library is
+    not built."""
     import scipy.sparse as sp
 
     A = sp.csr_matrix(A_scipy)

@@ -1,14 +1,18 @@
 """ctypes binding of the host C++ runtime ``native/mlamg_native.cpp``
-(counterpart of ``mlamg_tpu/native/__init__.py``; ``rcm_ordering``,
-``count_diagonals`` and ``csr_to_dia`` are on the port's paths so far).
+(counterpart of ``mlamg_tpu/native/__init__.py``: ``rcm_ordering``,
+``count_diagonals``, ``csr_to_dia``, ``csr_to_ell`` and
+``greedy_coloring``).
 
 The library is compiled from the repository's source at first use by
 ``g++ -O3 -fPIC -shared`` into ``mlamg_torch/_build/`` (no
 ``-march=native``, and never a library built on another host; see
 ``ops/_build.py``).  Without a compiler or the source, ``rcm_ordering``
 falls back to scipy exactly as the JAX package does, so both packages give
-the same permutation on the same machine; the DIA extraction falls back to
-numpy (:func:`csr_to_dia_numpy`), which gives the same offsets and data.
+the same permutation on the same machine; the DIA and ELL packings fall
+back to numpy (:func:`csr_to_dia_numpy`, :func:`csr_to_ell_numpy`), which
+give the same results; :func:`mlamg_torch.mg.smoothers.greedy_coloring`
+runs :func:`greedy_coloring` where the library is built and its own Python
+loop (the same colours) where it is not.
 """
 
 from __future__ import annotations
@@ -54,6 +58,10 @@ def _load():
     lib.count_diagonals.argtypes = [i64, p_i64, p_i32]
     lib.csr_to_dia.restype = i64
     lib.csr_to_dia.argtypes = [i64, p_i64, p_i32, p_f32, p_i64, p_f32]
+    lib.csr_to_ell.restype = ctypes.c_int
+    lib.csr_to_ell.argtypes = [i64, p_i64, p_i32, p_f32, i64, p_f32, p_i32]
+    lib.greedy_coloring.restype = ctypes.c_int32
+    lib.greedy_coloring.argtypes = [i64, p_i64, p_i32, p_i32]
     _LIB = lib
     return _LIB
 
@@ -137,3 +145,54 @@ def csr_to_dia(A):
     out = np.empty((cap, n), np.float32)
     d = int(lib.csr_to_dia(n, indptr, indices, data, offsets, out.reshape(-1)))
     return offsets[:d], out[:d]
+
+
+def csr_to_ell_numpy(A, width: int | None = None, dtype=np.float32):
+    """(data (n, w) ``dtype``, cols (n, w) i32): each row's entries in
+    column order, then zeros (column 0); raises if a row holds more than
+    ``width`` entries (default: the largest row degree)."""
+    import scipy.sparse as sp
+
+    A = sp.csr_matrix(A)
+    A.sort_indices()
+    n = A.shape[0]
+    deg = np.diff(A.indptr)
+    w = int(deg.max(initial=0)) if width is None else int(width)
+    if deg.max(initial=0) > w:
+        raise ValueError(f"row degree exceeds width {w}")
+    data = np.zeros((n, w), dtype)
+    cols = np.zeros((n, w), np.int32)
+    rows = np.repeat(np.arange(n), deg)
+    offs = np.arange(A.nnz) - np.repeat(A.indptr[:-1], deg)
+    data[rows, offs] = A.data
+    cols[rows, offs] = A.indices
+    return data, cols
+
+
+def csr_to_ell(A, width: int | None = None):
+    """(data (n, w) f32, cols (n, w) i32): the C++ packing, or
+    :func:`csr_to_ell_numpy` where it is not built."""
+    lib = _load()
+    if lib is None:
+        return csr_to_ell_numpy(A, width)
+    indptr, indices, data, n = _csr_parts(A)
+    w = int(np.diff(indptr).max(initial=0)) if width is None else int(width)
+    out_d = np.empty((n, w), np.float32)
+    out_c = np.empty((n, w), np.int32)
+    if lib.csr_to_ell(n, indptr, indices, data, w, out_d, out_c) != 0:
+        raise ValueError(f"row degree exceeds width {w}")
+    return out_d, out_c
+
+
+def greedy_coloring(A):
+    """(colors (n,) i32, num_colors): the C++ greedy colouring in row order,
+    each row the smallest colour its lower-numbered neighbours leave free.
+    Needs the library (:func:`available`); callers use
+    :func:`mlamg_torch.mg.smoothers.greedy_coloring`, which falls back to
+    its Python loop."""
+    lib = _load()
+    if lib is None:
+        raise RuntimeError("greedy_coloring: the native library is not built")
+    indptr, indices, _, n = _csr_parts(A)
+    colors = np.empty(n, np.int32)
+    return colors, int(lib.greedy_coloring(n, indptr, indices, colors))

@@ -16,7 +16,8 @@ The port keeps the flat (D, n) layout.  The JAX package's pre-blocked
 (D, n/128, 128) relayout (``pallas_kernels.blocked_dia``) exists for the
 TPU's (8, 128) tiling and has no counterpart here.  ``dia_spmv_t``,
 ``dia_spmm`` and ``dia_jacobi_operator`` are plain PyTorch, as the JAX
-package computes them in XLA outside any kernel.
+package computes them in XLA outside any kernel.  :func:`auto_format`
+picks DIA or ELL from a matrix's structure.
 """
 
 from __future__ import annotations
@@ -250,3 +251,14 @@ def dia_jacobi_operator(A: DIA, Dinv: torch.Tensor, omega: float) -> DIA | None:
     data = -omega * Dinv[None, :] * A.data
     data[A.offsets.index(0)] += 1.0
     return DIA(data, A.offsets, A.shape)
+
+
+def auto_format(A_scipy, max_diagonals: int = 32, dtype=torch.float32, device=None):
+    """The container for this matrix's structure: a DIA for a square matrix
+    of at most ``max_diagonals`` stored diagonals (a stencil), an ELL
+    otherwise."""
+    from mlamg_torch.ops.sparse import ELL
+
+    if A_scipy.shape[0] == A_scipy.shape[1] and DIA.num_diagonals(A_scipy) <= max_diagonals:
+        return DIA.from_scipy(A_scipy, dtype=dtype, device=device)
+    return ELL.from_scipy(A_scipy, dtype=dtype, device=device)

@@ -62,6 +62,18 @@ def slot_sum(values: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
     return ordered_sum(torch.cat([values, pad])[slots], 1)
 
 
+def _padded(nnz: int, nnz_pad: int | None, m: int):
+    """Host (data, row, col) buffers of ``nnz_pad`` slots (default: nnz
+    rounded up to 128) holding the padding convention."""
+    if nnz_pad is None:
+        nnz_pad = max(round_up(nnz, 128), 128)
+    if nnz_pad < nnz:
+        raise ValueError(f"nnz_pad={nnz_pad} < nnz={nnz}")
+    # float64 holds float32 and float64 values exactly
+    return (np.zeros(nnz_pad, np.float64), np.full(nnz_pad, m, np.int64),
+            np.zeros(nnz_pad, np.int64))
+
+
 @dataclasses.dataclass(frozen=True)
 class COO:
     """Padded COO matrix; entries need not be sorted.  Padding entries have
@@ -73,6 +85,58 @@ class COO:
     col: torch.Tensor  # (nnz_pad,) int64
     shape: Tuple[int, int]
     nnz: int
+
+    @property
+    def nnz_pad(self) -> int:
+        return int(self.data.shape[0])
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.data.dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.data.device
+
+    @property
+    def mask(self) -> torch.Tensor:
+        """(nnz_pad,) boolean: True for real entries."""
+        return self.row < self.shape[0]
+
+    @staticmethod
+    def from_scipy(A, nnz_pad: int | None = None, dtype=torch.float32,
+                   device=None) -> "COO":
+        """COO of a scipy matrix in its own entry order, padded to
+        ``nnz_pad`` (default: nnz rounded up to 128)."""
+        device = resolve_device(device)
+        A = A.tocoo()
+        m, n = (int(s) for s in A.shape)
+        nnz = int(A.nnz)
+        data, row, col = _padded(nnz, nnz_pad, m)
+        data[:nnz], row[:nnz], col[:nnz] = A.data, A.row, A.col
+        return COO(torch.from_numpy(data).to(device=device, dtype=dtype),
+                   torch.from_numpy(row).to(device), torch.from_numpy(col).to(device),
+                   (m, n), nnz)
+
+    def todense(self) -> torch.Tensor:
+        """Dense (m, n); duplicate coordinates sum (in entry order on the
+        CPU)."""
+        m, n = self.shape
+        flat = torch.where(self.mask, self.row * n + self.col,
+                           torch.full_like(self.row, m * n))
+        out = torch.zeros(m * n + 1, dtype=self.dtype, device=self.device)
+        return out.index_add(0, flat, self.data)[:-1].view(m, n)
+
+    def to_scipy(self):
+        """scipy CSR of the real entries (duplicates summed)."""
+        import scipy.sparse as sp
+
+        m, n = self.shape
+        keep = self.mask.cpu().numpy()
+        return sp.coo_matrix(
+            (self.data.detach().cpu().numpy()[keep],
+             (self.row.cpu().numpy()[keep], self.col.cpu().numpy()[keep])),
+            shape=(m, n)).tocsr()
 
     def sort_rows(self) -> "CSR":
         """Stable (row, col) sort into CSR form, as two stable argsorts
@@ -129,13 +193,7 @@ class CSR:
         A.sort_indices()
         m, n = (int(s) for s in A.shape)
         nnz = int(A.nnz)
-        if nnz_pad is None:
-            nnz_pad = max(round_up(nnz, 128), 128)
-        if nnz_pad < nnz:
-            raise ValueError(f"nnz_pad={nnz_pad} < nnz={nnz}")
-        data = np.zeros(nnz_pad, np.float64)  # holds f32/f64 values exactly
-        row = np.full(nnz_pad, m, np.int64)
-        col = np.zeros(nnz_pad, np.int64)
+        data, row, col = _padded(nnz, nnz_pad, m)
         data[:nnz] = A.data
         col[:nnz] = A.indices
         row[:nnz] = np.repeat(np.arange(m, dtype=np.int64), np.diff(A.indptr))
@@ -149,15 +207,29 @@ class CSR:
             nnz,
         )
 
-    def to_scipy(self):
-        import scipy.sparse as sp
+    @staticmethod
+    def from_dense(A: torch.Tensor, nnz_pad: int) -> "CSR":
+        """CSR of the first ``nnz_pad`` nonzeros of a dense (m, n) tensor
+        in row-major order, padded to ``nnz_pad``; ``nnz`` is the static
+        bound ``nnz_pad``, as in the JAX package (tests and small
+        operators)."""
+        m, n = (int(s) for s in A.shape)
+        flat = A.reshape(-1)
+        present = flat != 0
+        # real entries first (the stable sort keeps row-major order)
+        perm = torch.sort((~present).to(torch.uint8), stable=True).indices[:nnz_pad]
+        keep = present[perm]
+        row = torch.where(keep, perm // n, torch.full_like(perm, m))
+        col = torch.where(keep, perm % n, torch.zeros_like(perm))
+        data = torch.where(keep, flat[perm], torch.zeros_like(flat[perm]))
+        indptr = torch.searchsorted(row, torch.arange(m + 1, dtype=row.dtype, device=row.device))
+        return CSR(data, row, col, indptr, (m, n), nnz_pad)
 
-        m, n = self.shape
-        keep = (self.row < m).cpu().numpy()
-        d = self.data.cpu().numpy()[keep]
-        r = self.row.cpu().numpy()[keep]
-        c = self.col.cpu().numpy()[keep]
-        return sp.coo_matrix((d, (r, c)), shape=(m, n)).tocsr()
+    def as_coo(self) -> COO:
+        return COO(self.data, self.row, self.col, self.shape, self.nnz)
+
+    def to_scipy(self):
+        return self.as_coo().to_scipy()
 
     def diagonal(self) -> torch.Tensor:
         """Dense (m,) diagonal."""
@@ -178,6 +250,28 @@ class CSR:
 
     def abs(self) -> "CSR":
         return self.with_data(self.data.abs())
+
+    def _masked(self, keep: torch.Tensor) -> "CSR":
+        """Values zeroed where ``keep`` is False; the pattern stays."""
+        return self.with_data(torch.where(keep, self.data, torch.zeros_like(self.data)))
+
+    def triu(self, k: int = 0) -> "CSR":
+        return self._masked(self.col - self.row >= k)
+
+    def tril(self, k: int = 0) -> "CSR":
+        return self._masked(self.col - self.row <= k)
+
+    def scale_rows(self, s: torch.Tensor) -> "CSR":
+        """diag(s) @ A."""
+        return self.with_data(self.data * s[self.row.clamp(max=self.shape[0] - 1)])
+
+    def scale_cols(self, s: torch.Tensor) -> "CSR":
+        """A @ diag(s)."""
+        return self.with_data(self.data * s[self.col])
+
+    def row_degrees(self) -> torch.Tensor:
+        """(m,) number of stored entries per row."""
+        return self.indptr[1:] - self.indptr[:-1]
 
     @cached_property
     def row_slots(self) -> torch.Tensor:
@@ -229,6 +323,43 @@ class ELL:
     def col_slots(self) -> torch.Tensor:
         """(n, w') positions in the flattened slots of each column."""
         return segment_slots(self.col.reshape(-1), self.shape[1])
+
+    @staticmethod
+    def from_scipy(A, width: int | None = None, dtype=torch.float32,
+                   device=None) -> "ELL":
+        """ELL of a scipy matrix, each row's entries in column order and
+        zero-filled to ``width`` (default: the largest row degree).
+        float32 packs through the C++ ``csr_to_ell`` (numpy where it is not
+        built), other types through numpy, as in the JAX package."""
+        import scipy.sparse as sp
+
+        from mlamg_torch import native
+
+        device = resolve_device(device)
+        A = sp.csr_matrix(A)
+        A.sort_indices()
+        m, n = (int(s) for s in A.shape)
+        deg = np.diff(A.indptr)
+        w = int(deg.max(initial=0)) if width is None else int(width)
+        if w < deg.max(initial=0):
+            raise ValueError(f"ELL width {w} < largest row degree {deg.max()}")
+        if dtype == torch.float32:
+            data, col = native.csr_to_ell(A, w)
+        else:
+            data, col = native.csr_to_ell_numpy(A, w, np.float64)
+        return ELL(torch.from_numpy(data).to(device=device, dtype=dtype),
+                   torch.from_numpy(col.astype(np.int64)).to(device), (m, n))
+
+    def to_scipy(self):
+        """scipy CSR of the stored nonzeros (zero slots dropped)."""
+        import scipy.sparse as sp
+
+        m, n = self.shape
+        d = self.data.detach().cpu().numpy().ravel()
+        r = np.repeat(np.arange(m), self.width)
+        c = self.col.cpu().numpy().ravel()
+        keep = d != 0
+        return sp.coo_matrix((d[keep], (r[keep], c[keep])), shape=(m, n)).tocsr()
 
     def todense(self) -> torch.Tensor:
         """Dense (m, n); duplicate coordinates sum in slot order."""

@@ -308,8 +308,16 @@ def test_setup_rejects_asymmetric_and_unported_options(hull_grid):
     A = sp.csr_matrix(np.array([[2.0, -1.0], [0.0, 2.0]], np.float32))
     with pytest.raises(ValueError, match="symmetric"):
         tamg.build_unstructured_hierarchy(A, fmt="csr", device=CPU)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tamg.build_unstructured_hierarchy(hull_grid, rap_mode="device", device=CPU)
+    # the device Galerkin product at the defaults (one level, 1500 -> 150)
+    # builds JAX's hierarchy: the same aggregates, the coarse operator
+    # within float32 rounding of the masked products' sums
+    hd, perm_d = tamg.build_unstructured_hierarchy(hull_grid, rap_mode="device", device=CPU)
+    hdj, perm_dj = jamg.build_unstructured_hierarchy(hull_grid, rap_mode="device", fmt="csr")
+    np.testing.assert_array_equal(perm_d, perm_dj)
+    assert [lev.k for lev in hd.levels] == [lev.k for lev in hdj.levels] == [150]
+    np.testing.assert_array_equal(hd.levels[0].agg.numpy(), np.asarray(hdj.levels[0].agg))
+    lu_j = np.asarray(hdj.coarse.lu)
+    np.testing.assert_allclose(hd.coarse.lu.numpy(), lu_j, rtol=0, atol=1e-5 * np.abs(lu_j).max())
     # olson, unported in slice 1, builds the same level-0 aggregates as JAX
     ht, _ = tamg.build_unstructured_hierarchy(hull_grid, strength_kind="olson", device=CPU,
                                               fmt="csr", **BUILD)

@@ -177,8 +177,22 @@ def test_build_hierarchy_matches_jax(rng, monkeypatch, alpha, pin):
         np.testing.assert_allclose(cycle.vcycle(ht, t(b), t(x0)).numpy(),
                                    np.asarray(jcycle.vcycle(hj, jnp.asarray(b), jnp.asarray(x0))),
                                    rtol=0, atol=1e-10)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        cycle.build_hierarchy(CSR.from_scipy(A, dtype=F64, device="cpu"), sparse_levels=1)
+    # the first coarse level kept sparse (rap_fused) equals JAX's too
+    hj = jcycle.build_hierarchy(jsparse.CSR.from_scipy(A, dtype=jnp.float64), alpha=alpha,
+                                width=5, sparse_levels=1)
+    ht = cycle.build_hierarchy(CSR.from_scipy(A, dtype=F64, device="cpu"), alpha=alpha, width=5,
+                               sparse_levels=1)
+    assert isinstance(ht.As[1], CSR) and isinstance(ht.Ps[0], CSR) and len(ht.As) == len(hj.As)
+    for name in ("row", "col", "indptr"):
+        np.testing.assert_array_equal(getattr(ht.As[1], name).numpy(),
+                                      np.asarray(getattr(hj.As[1], name)))
+    np.testing.assert_allclose(ht.As[1].data.numpy(), np.asarray(hj.As[1].data), rtol=0,
+                               atol=1e-12 * float(np.abs(np.asarray(hj.As[1].data)).max()))
+    # level 1's duplicates add in each package's sort order, and the
+    # coarsest LU (singular without the pin) carries that rounding
+    lu_j = np.asarray(hj.coarse.lu)
+    np.testing.assert_allclose(ht.coarse.lu.numpy(), lu_j, rtol=0,
+                               atol=1e-10 * np.abs(lu_j).max())
 
 
 def coarsening_cases():

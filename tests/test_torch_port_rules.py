@@ -77,6 +77,30 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
     assert h.levels[0].Dinv.device.type == "cpu" and sorted(perm) == list(range(50))
 
 
+def test_galerkin_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
+    from mlamg_torch.mg.amg_unstructured import build_unstructured_hierarchy
+    from mlamg_torch.mg.cycle import build_hierarchy
+    from mlamg_torch.ops.dia import auto_format
+    from mlamg_torch.ops.sparse import COO, CSR, ELL
+
+    A = sp.diags([-1.0, 2.0, -1.0], [-1, 0, 1], shape=(50, 50), format="csr")
+    for call in (lambda: build_unstructured_hierarchy(A, rap_mode="device", min_coarse=10),
+                 lambda: build_unstructured_hierarchy(A, rap_mode="device", setup_device="cpu",
+                                                      min_coarse=10),
+                 lambda: ELL.from_scipy(A),
+                 lambda: COO.from_scipy(A),
+                 lambda: auto_format(A)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    prof: dict = {}
+    h, _ = build_unstructured_hierarchy(A, rap_mode="device", min_coarse=10, device="cpu",
+                                        profile_out=prof)
+    assert h.levels[0].A.device.type == "cpu" and prof["rap_branch"] == ["masked"]
+    hs = build_hierarchy(CSR.from_scipy(A, device="cpu"), alpha=0.5, min_coarse=10,
+                         sparse_levels=1)
+    assert isinstance(hs.As[1], CSR) and hs.As[1].device.type == "cpu"
+
+
 def test_structured_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
     from mlamg_torch.convert import hierarchy_from_numpy
     from mlamg_torch.mg.structured import build_structured_hierarchy

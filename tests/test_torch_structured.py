@@ -31,6 +31,7 @@ from mlamg_torch.mg.structured import (
     _decompose_offsets, build_structured_hierarchy, dia_galerkin_probe,
 )
 from mlamg_torch.ops.dia import DIA
+from mlamg_torch.ops.sparse import CSR
 
 CPU = "cpu"
 F64 = torch.float64
@@ -117,15 +118,25 @@ def test_factored_sa_factors_match_jax(rng, steps):
     close(Pt.densify(), Pj.densify())
 
 
-def test_factored_sa_unported_defaults_raise():
-    _, At = pair(poisson2d(8))
+def test_factored_sa_unported_defaults_raise(rng):
+    """A dense operand raises; a DIA without a stored main diagonal gets
+    the JAX package's CSR factors (A read back in float32, Dinv = 1, no
+    identity added), the same as JAX's within 1e-12."""
+    Aj, At = pair(poisson2d(8))
     T = factored.BoxAgg2D(8, 8, 2, 2)
-    with pytest.raises(NotImplementedError, match="CSR branch.*Queue 1 item 3"):
+    with pytest.raises(TypeError, match="unsupported operator"):
         factored.factored_sa(torch.eye(64), T, omega=0.6)
     no_diag = DIA(At.data[:2], At.offsets[:2], At.shape)
+    no_diag_j = JDIA(Aj.data[:2], Aj.offsets[:2], Aj.shape)
     assert 0 not in no_diag.offsets
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        factored.factored_sa(no_diag, T, omega=0.6)
+    Pt = factored.factored_sa(no_diag, T, omega=0.6)
+    Pj = jfac.factored_sa(no_diag_j, jfac.BoxAgg2D(8, 8, 2, 2), omega=0.6)
+    assert all(isinstance(S, CSR) for S in Pt.Ss + Pt.Sts)
+    for S, Sj in zip(Pt.Ss + Pt.Sts, Pj.Ss + Pj.Sts):
+        assert abs(S.to_scipy() - Sj.to_scipy()).max() <= 1e-12
+    e, v = rng.randn(16), rng.randn(64)
+    close(Pt.interp(t(e)), Pj.interp(jnp.asarray(e)))
+    close(Pt.restrict(t(v)), Pj.restrict(jnp.asarray(v)))
 
 
 @pytest.mark.parametrize("steps", [1, 2])
