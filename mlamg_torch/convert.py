@@ -7,7 +7,10 @@ package's hierarchies.  :func:`fullaggnet_from_params` loads a
 checkpoint's learned weights into the port's :class:`FullAggNet` and
 :func:`cfnet_from_params` into its :class:`CFInterpolationNetwork`;
 :func:`params_from_fullaggnet` and :func:`params_from_cfnet` write them back
-as the JAX package's parameter tree.
+as the JAX package's parameter tree.  :func:`module_from_params` and
+:func:`params_from_module` do the same for any other of the port's flax-named
+modules (``ConvergencePredictor``, ``AggOnlyNet``, the interpolation
+networks), built by the caller.
 """
 
 from __future__ import annotations
@@ -149,6 +152,24 @@ def cfnet_from_params(params: Mapping, net_config: Mapping | None = None, device
                                      "row_normalize": bool(nc["row_normalize"])} if nc else {}))
     _load_flax_params(net, params, "cfnet_from_params")
     return net.to(device=dev, dtype=dtype).eval()
+
+
+def module_from_params(net: torch.nn.Module, params: Mapping, device=None,
+                       dtype=torch.float32) -> torch.nn.Module:
+    """``net`` (a port module with the flax submodule names, built by the
+    caller with the JAX module's configuration) with the weights of a
+    flax parameter tree ``{"params": {...}}`` of numpy arrays, moved to
+    ``device`` and ``dtype``; mapped and checked as in
+    :func:`fullaggnet_from_params`."""
+    dev = resolve_device(device)
+    _load_flax_params(net, params, type(net).__name__)
+    return net.to(device=dev, dtype=dtype)
+
+
+def params_from_module(net: torch.nn.Module) -> dict:
+    """The JAX package's parameter tree of a port module; the inverse of
+    :func:`module_from_params`."""
+    return _flax_params(net)
 
 
 def _load_flax_params(net, params: Mapping, who: str) -> None:

@@ -194,3 +194,15 @@ def anisotropic_kappa(epsilon: float = 1.0, theta: float = 0.0) -> Callable:
         return K
 
     return kappa
+
+
+def jump_kappa(jumps: np.ndarray) -> Callable:
+    """Piecewise-constant diffusion by Voronoi regions of seed rows
+    [x, y, d]: the d of the nearest seed (reference ns/model/data.py:349-394)."""
+    jumps = np.asarray(jumps, dtype=np.float64)
+
+    def kappa(x, y):
+        d2 = (jumps[:, 0] - x) ** 2 + (jumps[:, 1] - y) ** 2
+        return jumps[np.argmin(d2), 2]
+
+    return kappa

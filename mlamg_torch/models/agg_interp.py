@@ -9,7 +9,8 @@
     interpolation smoother P-hat (PNet MPNN on 2-feature graph) -> P = P-hat Agg
 
 ``pad = (n_real, k_real)`` runs a grid padded to a shape bucket (see
-:func:`pad_aware_scores`).  ``AggOnlyNet`` is not ported yet.
+:func:`pad_aware_scores`).  ``AggOnlyNet`` keeps the learned
+aggregation and takes the classical Jacobi-smoothed prolongator of it.
 """
 
 from __future__ import annotations
@@ -179,3 +180,33 @@ class FullAggNet(nn.Module):
         P = remap_columns(A, p_edges[:, 0], agg_id, k, n_real=n_real)
         return agg_id, P, C, centers, node_mask
 
+
+class AggOnlyNet(nn.Module):
+    """Learned aggregation (AggNet top-k centers, CNet Bellman-Ford weights)
+    with the classical Jacobi-SA prolongator of it (reference
+    agg_interp.py:257-294).  ``bf_width`` and ``rel_strength`` as in
+    :class:`FullAggNet`."""
+
+    def __init__(self, dim: int = 64, num_conv: int = 6, iterations: int = 2,
+                 bf_width: int | None = None, rel_strength: bool = False):
+        super().__init__()
+        self.bf_width, self.rel_strength = bf_width, rel_strength
+        self.AggNetM = AggNet(dim, iterations=iterations, num_conv=num_conv)
+        self.CNet = MPNN(dim, num_internal_conv=5, edge_features=2 if rel_strength else 1)
+
+    def forward(self, A: CSR, k: int, pad=None):
+        """Returns (agg_id, P (CSR n x k), C, centers, node_mask)."""
+        from mlamg_torch.mg.interp import smoothed_aggregation
+
+        g = graph_from_matrix_basic(A, n_real=None if pad is None else pad[0],
+                                    ell_width=self.bf_width, rel_strength=self.rel_strength)
+        node_mask, scores = self.AggNetM(g, k, pad)
+        centers = topk_indices(scores, k)
+        _, bf_edges = self.CNet(g)
+        C = A.with_data(torch.where(A.mask, bf_edges[:, 0], torch.zeros_like(A.data)))
+        if self.bf_width is not None:
+            _, nearest = bellman_ford_pull(C, centers, width=self.bf_width)
+        else:
+            _, nearest = bellman_ford(C, centers)
+        agg_id = nearest_center_to_agg(centers, nearest)
+        return agg_id, smoothed_aggregation(A, agg_id, k), C, centers, node_mask

@@ -24,7 +24,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from mlamg_torch.models.graphdata import GraphData, gather_src, scatter_to_dst
+from mlamg_torch.models.graphdata import GraphData, gather_dst, gather_src, scatter_to_dst
 from mlamg_torch.ops.segment import ordered_sum, tree_sum
 
 
@@ -159,6 +159,26 @@ class EdgeModel(nn.Module):
         h = torch.cat([src_feat, dst_feat, edge_attr], dim=1)
         h = self.LayerNorm_0(torch.relu(self.Dense_0(h)))
         return self.Dense_1(h)
+
+
+class EdgeConv(nn.Module):
+    """Deeper edge MLP on concat(x[src], x[dst], edge_attr): two
+    Dense, ReLU, LayerNorm blocks and a Dense (role of EdgeConvModel,
+    agg_interp.py:59-77)."""
+
+    def __init__(self, in_dim: int, hid_dim: int, out_dim: int):
+        super().__init__()
+        _dense(self, 0, in_dim, hid_dim)
+        self.LayerNorm_0 = LayerNorm(hid_dim)
+        _dense(self, 1, hid_dim, hid_dim)
+        self.LayerNorm_1 = LayerNorm(hid_dim)
+        _dense(self, 2, hid_dim, out_dim)
+
+    def forward(self, g: GraphData, x: torch.Tensor, edge_attr: torch.Tensor) -> torch.Tensor:
+        h = torch.cat([gather_src(g, x), gather_dst(g, x), edge_attr], dim=1)
+        h = self.LayerNorm_0(torch.relu(self.Dense_0(h)))
+        h = self.LayerNorm_1(torch.relu(self.Dense_1(h)))
+        return self.Dense_2(h)
 
 
 class NNConv(nn.Module):

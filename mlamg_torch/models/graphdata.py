@@ -112,6 +112,15 @@ def graph_from_matrix(A: CSR, agg_id: torch.Tensor, n_real: int | None = None,
     return GraphData(A.row, A.col, attr, x, n, mask, _in_ell(A, ell_width))
 
 
+def graph_from_matrix_node_vals(A: CSR, x: torch.Tensor) -> GraphData:
+    """Caller-supplied node features ``x`` ((n,) or (n, F)) and the signed
+    entries a_ij as the one edge feature (reference data.py:48-51)."""
+    if x.ndim == 1:
+        x = x[:, None]
+    attr = torch.where(A.mask, A.data, torch.zeros_like(A.data))[:, None]
+    return GraphData(A.row, A.col, attr, x, A.shape[0], None, _in_ell(A, None))
+
+
 def gather_src(g: GraphData, x: torch.Tensor) -> torch.Tensor:
     """x[src] with padding rows zeroed."""
     xs = x[g.src.clamp(max=g.n - 1)]

@@ -17,7 +17,10 @@ This module repeats those draws on the host in numpy, for jax's default
   ``(nextafter(-1, 0), 1)``, and :func:`erf_inv` is XLA's lowering of it,
   M. Giles' polynomials ("Approximating the erfinv function", GPU Computing
   Gems, 2011): the single-precision set for float32, the double-precision
-  set for float64.
+  set for float64.  In float32 its ``log1p`` is XLA's CPU one
+  (:func:`log1p_f32`), so float32 normals and flax's initial weights
+  (:func:`lecun_normal`) are JAX's bit for bit; float64 uses numpy's
+  ``log1p`` and lands within a few ulps.
 
 Everything returns numpy arrays; callers move them to their device.
 """
@@ -132,7 +135,11 @@ def fma(a: np.ndarray, b, c) -> np.ndarray:
     a = np.asarray(a)
     t = a.dtype.type
     if a.dtype == np.float32:
-        return (a.astype(np.float64) * np.float64(t(b)) + np.float64(t(c))).astype(np.float32)
+        # the product is exact in float64; their sum rounded to odd in
+        # float64 (53 >= 24 + 2 bits) then to float32 rounds once
+        p = a.astype(np.float64) * np.asarray(b, np.float32).astype(np.float64)
+        th, tl = _two_sum(np.asarray(c, np.float32).astype(np.float64) + 0.0 * p, p)
+        return _round_to_odd(th, tl).astype(np.float32)
     if a.dtype != np.float64:
         raise TypeError(f"fma: unsupported dtype {a.dtype}")
     b = np.broadcast_to(np.float64(b), a.shape)
@@ -140,11 +147,72 @@ def fma(a: np.ndarray, b, c) -> np.ndarray:
     uh, ul = _two_prod(a, b)
     th, tl = _two_sum(c, uh)
     v, err = _two_sum(tl, ul)
-    # round v to odd: where the sum was inexact and v's last bit is even,
-    # step one ulp toward the exact value
+    return th + _round_to_odd(v, err)
+
+
+def _round_to_odd(v: np.ndarray, err: np.ndarray) -> np.ndarray:
+    """v + err (float64, err below v's last place) rounded to odd: where
+    err is not 0 and v's last bit is even, v stepped one ulp toward it."""
     even = (v.view(np.int64) & 1) == 0
-    v = np.where((err != 0) & even, np.nextafter(v, np.where(err > 0, np.inf, -np.inf)), v)
-    return th + v
+    return np.where((err != 0) & even, np.nextafter(v, np.where(err > 0, np.inf, -np.inf)), v)
+
+
+# XLA's CPU float32 log1p: the Cephes rational for |x| < sqrt(2) - 1
+# (numerator and denominator, highest degree first), else log(1 + x)
+_LOG1P_NUM = (4.5270000862445199635215E-5, 4.9854102823193375972212E-1,
+              6.5787325942061044846969E0, 2.9911919328553073277375E1,
+              6.0949667980987787057556E1, 5.7112963590585538103336E1,
+              2.0039553499201281259648E1)
+_LOG1P_DEN = (1.0, 1.5062909083469192043167E1, 8.3047565967967209469434E1,
+              2.2176239823732856465394E2, 3.0909872225312059774938E2,
+              2.1642788614495947685003E2, 6.0118660497603843919306E1)
+# XLA's CPU float32 log: Cephes' logf polynomial on the mantissa in
+# [sqrt(1/2), sqrt(2)) - 1, split in three interleaved Horner chains
+_LOGF_P = (7.0376836292E-2, -1.1514610310E-1, 1.1676998740E-1, -1.2420140846E-1,
+           1.4249322787E-1, -1.6668057665E-1, 2.0000714765E-1, -2.4999993993E-1,
+           3.3333331174E-1)
+
+
+def log_f32(y: np.ndarray) -> np.ndarray:
+    """XLA's CPU float32 ``log`` for positive normal ``y``, bit for bit:
+    the Cephes polynomial, its multiply-adds fused where the backend fuses
+    them."""
+    f32 = np.float32
+    m, e = np.frexp(np.asarray(y, f32))
+    m, e = m.astype(f32), e.astype(f32)
+    low = m < f32(0.707106781186547524)
+    x = (m - f32(1.0)) + np.where(low, m, f32(0.0))
+    e = e - np.where(low, f32(1.0), f32(0.0))
+    p = [f32(c) for c in _LOGF_P]
+    x2 = x * x
+    x3 = x2 * x
+    y0 = fma(fma(np.full_like(x, p[0]), x, p[1]), x, p[2])
+    y1 = fma(fma(np.full_like(x, p[3]), x, p[4]), x, p[5])
+    y2 = fma(fma(np.full_like(x, p[6]), x, p[7]), x, p[8])
+    y0 = fma(fma(y0, x3, y1), x3, y2)
+    y0 = fma(y0, x3, e * f32(-2.12194440e-4))
+    x = fma(-x2, f32(0.5), x) + y0
+    return fma(e, f32(0.693359375), x)
+
+
+def log1p_f32(x: np.ndarray) -> np.ndarray:
+    """XLA's CPU float32 ``log1p``, bit for bit (numpy's differs in ~16%
+    of the values by an ulp): for |x| < sqrt(2) - 1, x - x^2/2 + x^3
+    num(x)/den(x) with fused Horner steps, else :func:`log_f32` of 1 + x."""
+    f32 = np.float32
+    x = np.asarray(x, f32)
+    x2 = x * x
+
+    def horner(coeffs):
+        p = np.zeros_like(x)
+        for c in coeffs:
+            p = fma(p, x, f32(c))
+        return p
+
+    with np.errstate(divide="ignore", invalid="ignore"):
+        small = x + fma(f32(-0.5), x2, (x * x2) * (horner(_LOG1P_NUM) / horner(_LOG1P_DEN)))
+        large = log_f32(np.maximum(x + f32(1.0), np.finfo(f32).tiny))
+    return np.where(np.abs(x) < f32(0.41421356237309504880), small, large)
 
 
 def uniform(key: np.ndarray, shape, dtype=np.float32, minval=0.0, maxval=1.0) -> np.ndarray:
@@ -212,7 +280,7 @@ def erf_inv(x: np.ndarray) -> np.ndarray:
     x = np.asarray(x)
     t = x.dtype.type
     with np.errstate(divide="ignore", invalid="ignore"):  # |x| = 1: set at the end
-        w = -np.log1p(-(x * x))
+        w = -(log1p_f32(-(x * x)) if x.dtype == np.float32 else np.log1p(-(x * x)))
         s = np.sqrt(w)
         if x.dtype == np.float32:
             p = np.where(w < t(5.0), _horner(_ERFINV_F32[0], w - t(2.5)),
