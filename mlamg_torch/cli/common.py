@@ -169,8 +169,8 @@ def add_training_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParse
     parser.add_argument("--bucket-step", type=int, default=64,
                         help="grids are padded to n rounded up to this step")
     parser.add_argument("--mesh-pop", type=int, default=0,
-                        help="shard the population fitness over this many devices "
-                             "(0 = none; multi-GPU is not ported yet)")
+                        help="split the population fitness over this many pop shards "
+                             "on the run's device (0 = none)")
     parser.add_argument("--init-perturb", type=float, default=0.5,
                         help="uniform perturbation when seeding the population")
     parser.add_argument("--mutation-prob", type=float, default=1.0,

@@ -7,8 +7,8 @@ their sizes.
 
     python -m mlamg_torch.cli.evaluate_model grid.grid --model ckpt.ckpt [--device cpu]
 
-``--plot`` (the aggregate figures) needs ``mlamg_torch.viz``, which is not
-ported yet (ROADMAP.md, Queue 1 item 5); it raises.
+``--plot out.png`` draws Lloyd's aggregates beside the learned ones
+(``--spider``: P-weighted spider plots); it needs matplotlib.
 """
 
 from __future__ import annotations
@@ -20,11 +20,6 @@ import torch
 
 from mlamg_torch.device import resolve_device
 
-PLOT_NOT_PORTED = ("evaluate_model --plot draws with mlamg_torch.viz, which is not ported yet "
-                   "(ROADMAP.md, Queue 1 item 5: visualize, viz/aggplot.py and "
-                   "evaluate_model --plot)")
-
-
 def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description="Evaluate one grid: ML vs Lloyd vs random")
     p.add_argument("grid", type=str)
@@ -35,7 +30,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--iterations", type=int, default=2)
     p.add_argument("--res-tol", type=float, default=1e-6)
     p.add_argument("--plot", type=str, default=None,
-                   help="write a Lloyd-vs-ML aggregate comparison figure here (not ported)")
+                   help="write a Lloyd-vs-ML aggregate comparison figure here")
     p.add_argument("--spider", action="store_true",
                    help="spider plots (P-weighted) instead of blob plots")
     p.add_argument("--device", type=str, default=None,
@@ -50,13 +45,11 @@ def main(argv=None, log=print) -> dict:
     from mlamg_torch.convert import fullaggnet_from_params
     from mlamg_torch.data.grid import Grid
     from mlamg_torch.graph.components import check_aggregates_connected
-    from mlamg_torch.train import (GridBundle, SolveOptions, lloyd_reference_conv,
-                                   measured_conv, random_reference_conv)
+    from mlamg_torch.train import (GridBundle, SolveOptions, lloyd_aggregation_of,
+                                   lloyd_reference_conv, measured_conv, random_reference_conv)
     from mlamg_torch.utils.checkpoint import load_checkpoint
 
     args = parse_args(argv)
-    if args.plot:
-        raise NotImplementedError(PLOT_NOT_PORTED)
     dev = resolve_device(args.device)
     g = Grid.load(args.grid)
     opts = SolveOptions(res_tol=args.res_tol)
@@ -69,6 +62,7 @@ def main(argv=None, log=print) -> dict:
     log(f"lloyd conv:  {out['lloyd_conv']:.4f}")
     log(f"random conv: {out['random_conv']:.4f}")
 
+    ml = None
     if args.model:
         ck = load_checkpoint(args.model)
         nc = (ck.get("extra") or {}).get("net_config") or {}
@@ -87,7 +81,39 @@ def main(argv=None, log=print) -> dict:
         log(f"aggregates connected: {connected}; sizes min/mean/max = "
             f"{sizes.min()}/{sizes.mean():.1f}/{sizes.max()}")
         out.update(ml_conv=conv, connected=connected, sizes=sizes)
+        ml = (agg_id, P, conv)
+    if args.plot:
+        _plot(args, g, lloyd_aggregation_of(b, "abs").cpu().numpy(), out["lloyd_conv"], ml)
+        log(f"wrote {args.plot}")
     return out
+
+
+def _plot(args, g, lloyd_agg, lloyd_conv: float, ml) -> None:
+    """Lloyd's aggregates, and beside them the model's (agg_id, P, conv)
+    where there is one."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    from mlamg_torch.viz.aggplot import plot_agg, plot_spider_agg
+
+    ncols = 2 if ml is not None else 1
+    fig, axes = plt.subplots(1, ncols, figsize=(6 * ncols, 5.5), squeeze=False)
+    draw = plot_spider_agg if args.spider else plot_agg
+    draw(g, lloyd_agg, ax=axes[0, 0])
+    axes[0, 0].set_title(f"Lloyd + SA  (conv {lloyd_conv:.4f})")
+    if ml is not None:
+        agg_id, P, conv = ml
+        agg_id = agg_id.cpu().numpy()
+        if args.spider:
+            draw(g, agg_id, P=P.todense().cpu().numpy(), ax=axes[0, 1])
+        else:
+            draw(g, agg_id, ax=axes[0, 1])
+        axes[0, 1].set_title(f"ML (FullAggNet)  (conv {conv:.4f})")
+    fig.tight_layout()
+    fig.savefig(args.plot, dpi=130)
+    plt.close(fig)
 
 
 if __name__ == "__main__":

@@ -9,7 +9,8 @@ individual's fitness is 1 / mean over the training grids of its two-level
 conv over the Lloyd reference conv.  The JAX package evaluates the whole
 population on a shape bucket as one vmapped program; here the population
 and the grids are loops (:func:`mlamg_torch.train.make_population_fitness_bucketed`,
-or unpadded with ``--bucketed false``).  The reference convs come from the
+or unpadded with ``--bucketed false``); ``--mesh-pop N`` splits the
+population over N pop shards of the run's device.  The reference convs come from the
 ``.ref_convs_<measure>.json`` cache beside each split where it holds them;
 the ones measured here are written beside the checkpoints.  The report
 lines, metrics and checkpoints are the JAX CLI's; either package resumes
@@ -35,6 +36,7 @@ from mlamg_torch.device import resolve_device
 from mlamg_torch.ga import GAConfig, ParallelGA, flatten_params, fold_ids, init_population
 from mlamg_torch.models.agg_interp import FullAggNet
 from mlamg_torch.models.gnn import init_flax_
+from mlamg_torch.parallel import make_mesh
 from mlamg_torch.train import (
     GridBundle, SolveOptions, make_buckets, make_population_fitness,
     make_population_fitness_bucketed,
@@ -43,10 +45,6 @@ from mlamg_torch.utils import prng
 from mlamg_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 from mlamg_torch.utils.metrics import MetricsWriter
 from mlamg_torch.utils.profiler import Profiler
-
-MESH_POP_ERROR = ("--mesh-pop {}: sharding the population fitness over several GPUs is not "
-                  "ported yet (ROADMAP.md, Queue 1 item 6, multi-GPU); use --mesh-pop 0")
-
 
 def parse_args(argv=None) -> argparse.Namespace:
     parser = argparse.ArgumentParser(
@@ -87,8 +85,6 @@ def prepare(args: argparse.Namespace, log=print) -> GARun:
     ``init_population(PRNGKey(1), ...)``, or ``--resume``'s).  The
     population is float32, the JAX model's parameter type, also with
     ``--float64``, where the module and the solves run in float64."""
-    if args.mesh_pop:
-        raise ValueError(MESH_POP_ERROR.format(args.mesh_pop))
     dev = resolve_device(args.device)
     dtype = torch.float64 if args.float64 else torch.float32
     Profiler.enabled = True
@@ -149,14 +145,17 @@ def prepare(args: argparse.Namespace, log=print) -> GARun:
     fids, fold_names = fold_ids(net, fold_depth=args.fold_depth)
     log(f"{vec.shape[0]} weights in {len(fold_names)} folds")
 
+    mesh = None
+    if args.mesh_pop:  # N pop shards on the run's device
+        mesh = make_mesh(pop=args.mesh_pop, row=1, devices=[dev] * args.mesh_pop)
     if args.bucketed:
         fitness = make_population_fitness_bucketed(
             net, train, train_buckets, opts, loss_relative=args.loss_relative_measure,
-            fitness_metric=args.fitness_metric)
+            fitness_metric=args.fitness_metric, mesh=mesh)
     else:
         fitness = make_population_fitness(
             net, train, opts, loss_relative=args.loss_relative_measure,
-            batch_size=args.batch_size if args.batched else None)
+            batch_size=args.batch_size if args.batched else None, mesh=mesh)
 
     pop0 = init_population(prng.PRNGKey(1), vec, args.population_size,
                            perturb=args.init_perturb)

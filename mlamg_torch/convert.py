@@ -3,7 +3,9 @@
 :func:`uhierarchy_from_numpy` builds the port's :class:`UHierarchy` and
 :func:`hierarchy_from_numpy` the structured :class:`Hierarchy` from plain
 numpy/scipy data, exactly what ``np.asarray`` pulls out of the JAX
-package's hierarchies.  :func:`fullaggnet_from_params` loads a
+package's hierarchies, and :func:`partitioned_ell_from_numpy` the
+row-partitioned :class:`PartitionedELL` from a JAX one's arrays.
+:func:`fullaggnet_from_params` loads a
 checkpoint's learned weights into the port's :class:`FullAggNet` and
 :func:`cfnet_from_params` into its :class:`CFInterpolationNetwork`;
 :func:`params_from_fullaggnet` and :func:`params_from_cfnet` write them back
@@ -29,6 +31,7 @@ from mlamg_torch.models.agg_interp import FullAggNet
 from mlamg_torch.models.cf_interp import CFInterpolationNetwork
 from mlamg_torch.models.gnn import Dense, LayerNorm
 from mlamg_torch.ops.dia import DIA
+from mlamg_torch.parallel.pspmv import PartitionedELL
 
 
 def uhierarchy_from_numpy(levels: Sequence[Mapping], coarse: Mapping, *,
@@ -43,6 +46,21 @@ def uhierarchy_from_numpy(levels: Sequence[Mapping], coarse: Mapping, *,
     dev = resolve_device(device)
     ulevels = tuple(_make_level(lev, fmt, block_rows, dev) for lev in levels)
     return UHierarchy(ulevels, _coarse_from_numpy(coarse, dev, np.float32))
+
+
+def partitioned_ell_from_numpy(data, col, shape, num_shards: int, halo: int | None,
+                               device=None) -> PartitionedELL:
+    """The port's PartitionedELL from a JAX one's ``data`` (S, n_loc, w),
+    ``col`` (int32, widened to int64), ``shape``, ``num_shards`` and
+    ``halo``."""
+    dev = resolve_device(device)
+    data, col = np.asarray(data), np.asarray(col)
+    if data.shape != col.shape or data.shape[0] != num_shards:
+        raise ValueError(f"data {data.shape} and col {col.shape} are not {num_shards} shards")
+    return PartitionedELL(torch.tensor(data, device=dev),
+                          torch.tensor(col, dtype=torch.int64, device=dev),
+                          tuple(int(v) for v in shape), int(num_shards),
+                          None if halo is None else int(halo))
 
 
 def _coarse_from_numpy(coarse: Mapping, device, dtype=None) -> CoarseSolver:

@@ -1,7 +1,8 @@
 """Multi-source Bellman-Ford as iterated edge relaxation.
 
 Counterpart of ``mlamg_tpu/graph/bellman_ford.py`` :func:`bellman_ford`
-(push form), :func:`bellman_ford_pull` and :func:`nearest_center_to_agg`.
+(push form), :func:`bellman_ford_pull`, :func:`nearest_center_to_agg` and
+the assignment matrices :func:`agg_matrix_dense` and :func:`agg_matrix_csr`.
 Each sweep relaxes every edge at once and runs until no distance changes
 (or ``max_iter``); ties go to the smallest propagating center id.  Every
 reduction is a min, which is order-free, so the result equals JAX's bit
@@ -13,6 +14,7 @@ from __future__ import annotations
 import torch
 
 from mlamg_torch.ops.segment import segment_min
+from mlamg_torch.ops.sparse import COO, CSR
 
 
 def bellman_ford(C, centers: torch.Tensor, max_iter: int | None = None):
@@ -123,3 +125,20 @@ def nearest_center_to_agg(centers: torch.Tensor, nearest: torch.Tensor):
     inv = torch.full((n + 1,), k, dtype=torch.int64, device=nearest.device)
     inv[centers.to(torch.int64)] = torch.arange(k, device=nearest.device)
     return inv[nearest.clamp(max=n)]
+
+
+def agg_matrix_dense(agg_id: torch.Tensor, k: int) -> torch.Tensor:
+    """(n, k) one-hot aggregate assignment, float32 (a row of zeros where
+    ``agg_id`` is k, unassigned)."""
+    return (agg_id[:, None] == torch.arange(k, device=agg_id.device)).to(torch.float32)
+
+
+def agg_matrix_csr(agg_id: torch.Tensor, k: int) -> CSR:
+    """(n, k) aggregate assignment as a CSR with one slot per row (a
+    padding slot where ``agg_id`` is k, unassigned)."""
+    n = agg_id.shape[0]
+    assigned = agg_id < k
+    row = torch.where(assigned, torch.arange(n, device=agg_id.device), n)
+    col = torch.where(assigned, agg_id.to(torch.int64), 0)
+    data = assigned.to(torch.float32)
+    return COO(data, row, col, (n, k), n).sort_rows()

@@ -15,6 +15,8 @@ aggregation and takes the classical Jacobi-smoothed prolongator of it.
 
 from __future__ import annotations
 
+import math
+
 import torch
 from torch import nn
 
@@ -112,10 +114,15 @@ class AggNet(nn.Module):
         for i in range(iterations):
             setattr(self, f"layer_{i}", AggBinarizationLayer(dim, num_conv))
 
-    def forward(self, g: GraphData, k: int, pad=None):
-        x, scores = g.x, None
+    def forward(self, g: GraphData, k: int, pad=None, *, return_intermediate: bool = False):
+        """(mask, scores) of the last layer; with ``return_intermediate``
+        the list of every layer's 0/1 mask."""
+        x, scores, masks = g.x, None, []
         for i in range(self.iterations):
             x, scores = getattr(self, f"layer_{i}")(g, x, k, pad)
+            masks.append(x[:, 0])
+        if return_intermediate:
+            return masks
         return x[:, 0], scores
 
 
@@ -210,3 +217,12 @@ class AggOnlyNet(nn.Module):
             _, nearest = bellman_ford(C, centers)
         agg_id = nearest_center_to_agg(centers, nearest)
         return agg_id, smoothed_aggregation(A, agg_id, k), C, centers, node_mask
+
+
+def make_forward(model: nn.Module, alpha: float):
+    """f(A) -> ``model(A, k)`` with k = ceil(alpha * n) from A's shape."""
+
+    def f(A: CSR):
+        return model(A, int(math.ceil(alpha * A.shape[0])))
+
+    return f

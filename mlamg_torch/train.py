@@ -16,7 +16,8 @@ grid padded with an identity block to its bucket's size, as the JAX
 package pads them, because padding changes the soft loss (its ridge and
 test vectors) and the order of the model's sums.  The JAX package
 evaluates a bucket as one vmapped program; here a bucket is a loop over
-its grids (:func:`make_population_fitness_bucketed`).  The GA's fitness
+its grids (:func:`make_population_fitness_bucketed`), and a mesh splits
+the population over its pop axis.  The GA's fitness
 without buckets (:func:`make_population_fitness`) loops over the grids
 unpadded.
 """
@@ -301,22 +302,50 @@ def fitness_from_convs(convs, ref, dtype, loss_relative: bool = True,
     return t(1.0) / np.maximum(rel, t(1e-9))
 
 
+def _population_convs_fn(net, data, mesh):
+    """convs(population, convs_of) -> (M, G): :func:`population_convs` of
+    ``convs_of(module, data)``.  With a ``mesh``, the population is split
+    over its pop axis (:func:`mlamg_torch.parallel.shard_population_eval`)
+    and each block of shards evaluated on its device, with the module and
+    ``data`` copied there once where they live elsewhere; each row's convs
+    are the unsharded ones."""
+    if mesh is None:
+        return lambda population, convs_of: population_convs(
+            net, population, lambda m: convs_of(m, data))
+    from mlamg_torch.parallel import shard_population_eval
+    from mlamg_torch.parallel._comm import to_device
+
+    replicas: dict = {}
+
+    def convs(population, convs_of):
+        def per_shard(rows):
+            if rows.device not in replicas:
+                replicas[rows.device] = (to_device(net, rows.device), to_device(data, rows.device))
+            m, d = replicas[rows.device]
+            return population_convs(m, rows, lambda mm: convs_of(mm, d))
+
+        return shard_population_eval(per_shard, mesh)(population).numpy()
+
+    return convs
+
+
 def make_population_fitness_bucketed(net, bundles, buckets, opts: SolveOptions | None = None,
                                      loss_relative: bool = True,
-                                     fitness_metric: str = "mean_ratio"):
+                                     fitness_metric: str = "mean_ratio", mesh=None):
     """fitness_func(population (M, W), generation) -> (M,) fitness of flat
     weight vectors on the padded grids (:func:`population_convs`,
     :func:`fitness_from_convs`); ``fitness_func.last_convs`` holds the
     (M, G) convs of its last call, the grids in bucket order.  The JAX
-    package maps the population and the grids with ``vmap`` (and
-    optionally over a device mesh); here both are loops."""
+    package maps the population and the grids with ``vmap``; here both
+    are loops, with a ``mesh`` split over its pop axis."""
     opts = opts or SolveOptions()
     order = np.concatenate([b.idx for b in buckets])
     ref = [bundles[i].ref_conv for i in order]
     dtype = numpy_dtype(buckets[0].x0.dtype)
+    convs_fn = _population_convs_fn(net, buckets, mesh)
 
     def fitness_func(population, generation=0) -> np.ndarray:
-        convs = population_convs(net, population, lambda m: bucketed_convs(m, buckets, opts))
+        convs = convs_fn(population, lambda m, bs: bucketed_convs(m, bs, opts))
         fitness_func.last_convs = convs
         return fitness_from_convs(convs, ref, dtype, loss_relative, fitness_metric)
 
@@ -324,16 +353,19 @@ def make_population_fitness_bucketed(net, bundles, buckets, opts: SolveOptions |
 
 
 def make_population_fitness(net, bundles, opts: SolveOptions | None = None,
-                            loss_relative: bool = True, batch_size: int | None = None):
+                            loss_relative: bool = True, batch_size: int | None = None,
+                            mesh=None):
     """fitness_func(population (M, W), generation) -> (M,) fitness
     1 / mean over grids of conv / ref (:func:`fitness_from_convs`), each
     grid unpadded.  With ``batch_size`` below the number of grids, each
     call takes the minibatch ``RandomState(generation).choice(G,
-    batch_size, replace=False)``, as the JAX package does;
+    batch_size, replace=False)``, as the JAX package does; with a ``mesh``
+    the population is split over its pop axis;
     ``fitness_func.last_convs`` holds the convs of its last call."""
     opts = opts or SolveOptions()
     ref = np.asarray([b.ref_conv for b in bundles])
     dtype = numpy_dtype(bundles[0].x0.dtype)
+    convs_fn = _population_convs_fn(net, bundles, mesh)
 
     def fitness_func(population, generation=0) -> np.ndarray:
         if batch_size is not None and batch_size < len(bundles):
@@ -341,9 +373,8 @@ def make_population_fitness(net, bundles, opts: SolveOptions | None = None,
                                                              replace=False)
         else:
             batch = np.arange(len(bundles))
-        chosen = [bundles[i] for i in batch]
-        convs = population_convs(net, population,
-                                 lambda m: evaluate_model_on_bundles(m, chosen, opts))
+        convs = convs_fn(population, lambda m, bs: evaluate_model_on_bundles(
+            m, [bs[i] for i in batch], opts))
         fitness_func.last_convs = convs
         return fitness_from_convs(convs, ref[batch], dtype, loss_relative)
 

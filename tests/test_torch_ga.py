@@ -231,10 +231,14 @@ def test_checkpoints_load_across_packages(three_generations, tmp_path):
     assert_same_state(load_checkpoint(j_path), ours)
 
 
-def test_mesh_pop_is_rejected(dataset, tmp_path):
-    with pytest.raises(ValueError, match="Queue 1 item 6"):
-        train_dataset.main(ga_argv(dataset, tmp_path, "--max-generations", "1",
-                                   "--mesh-pop", "2"))
+def test_mesh_pop_is_rejected(dataset, tmp_path, three_generations):
+    """``--mesh-pop 2`` runs the population fitness on 2 pop shards of the
+    run's device: its first generation's GA state equals the unsharded
+    run's (``--mesh-pop 0``) bit for bit."""
+    out, _ = three_generations
+    train_dataset.main(ga_argv(dataset, tmp_path, "--max-generations", "1", "--mesh-pop", "2"))
+    assert_same_state(load_checkpoint(f"{tmp_path}/ck/model_001.ckpt"),
+                      load_checkpoint(f"{out}/ck/model_001.ckpt"))
 
 
 def test_train_one_sample_writes_its_checkpoint(tmp_path, capsys):

@@ -9,7 +9,9 @@ port follows them (the trained FullAggNet amplifies rounding, see
 (:func:`make_population_fitness`) and padded
 (:func:`make_population_fitness_bucketed`), and the fitness from them as
 the JAX package computes it, with and without ``loss_relative``, both
-metrics and the minibatch draw.
+metrics and the minibatch draw; and with the population split over a pop
+mesh (2 CPU shards), as the JAX package shard_maps it, the unsharded
+fitness bit for bit.
 """
 
 import os
@@ -33,6 +35,7 @@ from mlamg_torch.cli.common import compute_reference_convs
 from mlamg_torch.convert import fullaggnet_from_params
 from mlamg_torch.data.grid import Grid
 from mlamg_torch.ga import flatten_params, init_population
+from mlamg_torch.parallel import make_mesh
 from mlamg_torch.train import (
     GridBundle, SolveOptions, bucketed_convs, evaluate_model_on_bundles, fitness_from_convs,
     make_buckets, make_population_fitness, make_population_fitness_bucketed, population_convs,
@@ -200,3 +203,29 @@ def test_padding_invariance(setup, jax_convs):
     np.testing.assert_allclose(plain - padded, jax_convs[0][0] - jax_convs[1][0], rtol=0,
                                atol=2 * CONV_ATOL)
 
+
+
+@pytest.mark.parametrize("bucketed", [False, True])
+def test_fitness_on_a_pop_mesh_matches_jax_and_unsharded(setup, jax_convs, bucketed):
+    """``mesh=make_mesh(pop=2)``: the 3 individuals padded to 4 and split
+    over 2 pop shards give the unsharded fitness and convs bit for bit,
+    and JAX's fitness of its op-by-op convs."""
+    mesh = make_mesh(pop=2, row=1, devices=["cpu", "cpu"])
+    opts = SolveOptions(**OPTS)
+    if bucketed:
+        refs = np.asarray([setup["pbundles"][i].ref_conv for i in setup["tb"].idx])
+
+        def make(m):
+            return make_population_fitness_bucketed(setup["net"], setup["pbundles"],
+                                                    [setup["tb"]], opts, mesh=m)
+    else:
+        refs = setup["refs"]
+
+        def make(m):
+            return make_population_fitness(setup["net"], setup["bundles"], opts, mesh=m)
+    sharded, plain = make(mesh), make(None)
+    got = sharded(setup["pop"], 0)
+    np.testing.assert_array_equal(got, plain(setup["pop"], 0))
+    np.testing.assert_array_equal(sharded.last_convs, plain.last_convs)
+    assert got.dtype == np.float64 and sharded.last_convs.shape == (POP, 3)
+    np.testing.assert_allclose(got, j_fitness(jax_convs[int(bucketed)], refs), rtol=fit_rtol())

@@ -213,7 +213,7 @@ def test_train_convergence_runs_from_its_cache(sample_runs, tmp_path):
 
 # ---- evaluate_model and optimize_grid_param ---------------------------------
 
-def test_evaluate_model_prints_the_jax_clis_lines(capsys):
+def test_evaluate_model_prints_the_jax_clis_lines(capsys, tmp_path):
     from mlamg_tpu.cli import evaluate_model as j_evaluate_model
 
     argv = [str(TEST_DIR / SMALL_GRIDS[0]), "--model", str(REPO / "runs_iso_r5" / "grad_best.ckpt")]
@@ -223,8 +223,10 @@ def test_evaluate_model_prints_the_jax_clis_lines(capsys):
     out = evaluate_model.main(argv + ["--device", "cpu"], log=lines.append)
     assert lines == want
     assert out["connected"] is True and out["sizes"].sum() == out["n"]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        evaluate_model.main(argv + ["--device", "cpu", "--plot", "x.png"])
+    png = tmp_path / "em.png"
+    again = evaluate_model.main(argv + ["--device", "cpu", "--plot", str(png)], log=lines.append)
+    assert lines[len(want):] == want + [f"wrote {png}"] and png.stat().st_size > 1000
+    assert again["ml_conv"] == out["ml_conv"]
 
 
 def test_optimize_grid_param_matches_jax_and_never_worsens(capsys):
