@@ -236,12 +236,28 @@ Phases (each prints one JSON line; any failure exits non-zero):
    (float32 printed).  A torch.profiler trace of one S = 8 cycle; 0
    launches of either kernel; the phase must finish within 150 s.
 
+15. examples, in a fresh process of the dist phase's pool, started when
+   the dist phase ends (so still while the host meshes the 600k hull, and
+   never beside dist's timings; fresh because dist's profiler session
+   slows every later launch of its process): the seven
+   ``examples_torch/`` scripts through their ``main``.  Each runs on the
+   card at its defaults in float32 (its last line and seconds printed),
+   then in float64 on the card and in a CPU worker beside it; the lines
+   before the first one that rounding sets (``EXAMPLES_HELD``: all of
+   ``ga_smoke``, ``learn_p_r``, ``diff_topk_training`` and
+   ``edge_removal_aggregation``, the first 2 of
+   ``poisson1d_differentiable``, 3 of ``matconv_ga``, 1 of
+   ``reinforce_centers``; ``tests/test_torch_examples.py`` says why) are
+   held card against CPU: counts equal, printed decimals within one unit
+   of their last digit, the rest of each line equal.  0 launches of either
+   kernel; the phase must finish within 150 s.
+
 Then one line ``{"kernels": [...]}`` with each kernel's launches on its
 main path (``launches_galerkin``: ``well_spmv`` in the device-built
 hierarchy's solve; ``launches_eval``, ``launches_train``, ``launches_ga``,
-``launches_ns``, ``launches_tools``, ``launches_dist``: on the
-evaluation's, training's, the GA's, the Navier-Stokes, the tools' and the
-distributed path, 0), its largest error
+``launches_ns``, ``launches_tools``, ``launches_dist``,
+``launches_examples``: on the evaluation's, training's, the GA's, the
+Navier-Stokes, the tools', the distributed path and the examples, 0), its largest error
 against the plain version over every check, its time, the plain version's
 and the library call's time, and its bound (``well_spmv``: from the stored
 nonzeros, ``bound_ell_ms`` counts the ELL slots and ``bound_sliced_ms`` the
@@ -403,6 +419,13 @@ DIST_LLOYD_RATIO, DIST_LLOYD_MAXITER = 64, 5
 DIST_FIT_GRIDS, DIST_FIT_POP = 4, 4
 DIST_VIZ_RTOL, DIST_VIZ_CYCLES = 1e-6, 10
 DIST_SECONDS = 150.0
+# the examples phase: the seven examples_torch scripts; the float64 lines
+# held card against CPU, per script (None: every line), those before the
+# first line that rounding sets (tests/test_torch_examples.py)
+EXAMPLES_HELD = {"ga_smoke": None, "poisson1d_differentiable": 2, "learn_p_r": None,
+                 "diff_topk_training": None, "matconv_ga": 3,
+                 "edge_removal_aggregation": None, "reinforce_centers": 1}
+EXAMPLES_SECONDS = 150.0
 # the sparse Galerkin setup on the 600k hull: the device product's level-0
 # A_H within 1e-4 * max|A_H| of the host product's (the JAX package's bound,
 # tests/test_amg_unstructured.py), rap_learned within rtol = atol = 2e-4 of
@@ -2810,6 +2833,118 @@ def _dist_phase(out: dict) -> tuple[dict, dict]:
     return out, launches
 
 
+class _Enough(Exception):
+    """Raised by :func:`_run_example`'s print once the held lines are in."""
+
+
+def _run_example(name: str, argv: list, limit=None) -> tuple[list, float]:
+    """(lines printed, seconds) of ``examples_torch/<name>.py``'s ``main(argv)``,
+    stopped once ``limit`` lines are in."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples_torch",
+                        f"{name}.py")
+    spec = importlib.util.spec_from_file_location(f"examples_torch_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    lines: list = []
+
+    def record(*args, sep=" ", end="\n", **_):
+        lines.extend((sep.join(map(str, args)) + end).splitlines())
+        if limit is not None and len(lines) >= limit:
+            raise _Enough
+
+    mod.print = record
+    t0 = time.time()
+    try:
+        mod.main(argv)
+    except _Enough:
+        pass
+    return lines, time.time() - t0
+
+
+def _examples_cpu() -> dict:
+    """The held float64 lines of every example on the CPU (a worker)."""
+    _cpu_worker_setup()
+    return {name: _run_example(name, ["--device", "cpu", "--dtype", "float64"], held)
+            for name, held in EXAMPLES_HELD.items()}
+
+
+def _lines_agree(a: str, b: str) -> bool:
+    """Two printed lines agree: the same words and integers, and decimals
+    within one unit of their last printed digit (a value on a rounding
+    boundary may print either way)."""
+    ta, tb = a.replace(",", " ").split(), b.replace(",", " ").split()
+    if len(ta) != len(tb):
+        return False
+    for x, y in zip(ta, tb):
+        if x == y:
+            continue
+        xs, ys = x.strip("[]()"), y.strip("[]()")
+        try:
+            fx, fy = float(xs), float(ys)
+        except ValueError:
+            return False
+        if "." not in xs or "." not in ys:
+            return False  # an integer (a count) differs
+        unit = 10.0 ** -max(len(xs.split(".")[1]), len(ys.split(".")[1]))
+        if abs(fx - fy) > unit * 1.0001:
+            return False
+    return True
+
+
+def examples_phase() -> tuple[dict, dict]:
+    """The seven examples (phase 15 of the module docstring).  Returns the
+    phase's line and the CUDA kernels' launches over it."""
+    out: dict = {"phase": "examples"}
+    try:
+        return _examples_phase(out)
+    except SystemExit:
+        print(json.dumps(out, default=str), file=sys.stderr, flush=True)
+        raise
+
+
+def _examples_phase(out: dict) -> tuple[dict, dict]:
+    import torch
+    from mlamg_torch.ops.unstructured import LAUNCHES
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_phase = time.time()
+    LAUNCHES.clear()
+    with ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn")) as ex:
+        cpu_job = ex.submit(_examples_cpu)
+        scripts = {}
+        for name, held in EXAMPLES_HELD.items():
+            lines32, s32 = _run_example(name, ["--dtype", "float32"])
+            check(len(lines32) > 0, f"{name} printed nothing on the card")
+            lines64, s64 = _run_example(name, ["--dtype", "float64"], held)
+            scripts[name] = {"last_line_float32": lines32[-1], "lines_float32": len(lines32),
+                             "seconds_float32": s32, "lines_float64": lines64,
+                             "seconds_float64_held": s64}
+        cpu = cpu_job.result()
+    out["scripts"] = scripts
+    for name, (lines, seconds) in cpu.items():
+        card_lines = scripts[name]["lines_float64"]
+        held = len(lines)
+        scripts[name].update(
+            lines_held=held, seconds_float64_cpu_held=seconds,
+            lines_equal=sum(a == b for a, b in zip(card_lines, lines)),
+            lines_agree=sum(_lines_agree(a, b) for a, b in zip(card_lines, lines)))
+        if held != len(card_lines) or scripts[name]["lines_agree"] != held:
+            scripts[name]["lines_float64_cpu"] = lines
+    bad = {n: v for n, v in scripts.items()
+           if v["lines_held"] == 0 or v["lines_agree"] != v["lines_held"]
+           or len(v["lines_float64"]) != v["lines_held"]}
+    check(not bad, f"examples: float64 lines on the card differ from the CPU's: {bad}")
+    launches = {"well_spmv": LAUNCHES["well_spmv"], "dia_spmv": LAUNCHES["dia_spmv"]}
+    out["launches"] = launches
+    check(not any(launches.values()), f"the examples launched CUDA kernels: {launches}")
+    out["seconds_phase"] = time.time() - t_phase
+    check(out["seconds_phase"] <= EXAMPLES_SECONDS,
+          f"examples phase took {out['seconds_phase']:.1f} s (limit {EXAMPLES_SECONDS} s)")
+    return out, launches
+
+
 def main() -> None:
     import torch
 
@@ -2839,8 +2974,12 @@ def main() -> None:
     # process for the same reason as the ga phase below; it runs while this
     # process meshes the 600k hull on the host, when the card is idle, and
     # ends before any kernel is timed ---
-    with ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn")) as ex:
+    # --- slice 10: the examples, in a fresh process of the same pool once
+    # dist is done, still beside the meshing ---
+    with ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn"),
+                             max_tasks_per_child=1) as ex:
         dist_job = ex.submit(dist_phase)
+        examples_job = ex.submit(examples_phase)
 
         # --- slice 1: the unstructured multilevel solve (well_spmv) ---
         t0 = time.time()
@@ -2851,8 +2990,11 @@ def main() -> None:
               "seconds": time.time() - t0, "native_rcm": native.available()})
         t0 = time.time()
         dist_line, dist_launches = dist_job.result()
-    dist_line["waited_after_meshing_s"] = time.time() - t0
+        dist_line["waited_after_meshing_s"] = time.time() - t0
+        examples_line, examples_launches = examples_job.result()
+        examples_line["waited_after_meshing_s"] = time.time() - t0
     emit(dist_line)
+    emit(examples_line)
     kernel_launches_dist = dist_launches
 
     rng = np.random.RandomState(0)
@@ -2940,6 +3082,8 @@ def main() -> None:
     dia.update(launches_tools=tools_launches["dia_spmv"])
     kernel["launches_dist"] = kernel_launches_dist["well_spmv"]
     dia.update(launches_dist=kernel_launches_dist["dia_spmv"])
+    kernel["launches_examples"] = examples_launches["well_spmv"]
+    dia.update(launches_examples=examples_launches["dia_spmv"])
     dia.update(
         launches=dia_launches,
         launches_vcycles=structured["dia_spmv_launches_cycles"],

@@ -8,6 +8,7 @@ Hand-written CUDA kernels live in ``ops/csrc/`` and are built with
 ``nvcc`` at first use into ``mlamg_torch/_build/`` (see ``ops/_build.py``).
 """
 
-from mlamg_torch.device import resolve_device
+__version__ = "0.1.0"
 
-__all__ = ["resolve_device"]
+from mlamg_torch.device import resolve_device  # noqa: F401
+from mlamg_torch.ops.sparse import COO, CSR, ELL  # noqa: F401

@@ -11,7 +11,7 @@ import scipy.sparse as sp
 
 from mlamg_torch.data.grid import Grid
 from mlamg_torch.graph.strength import STRENGTH_MEASURES
-from mlamg_torch.train import lloyd_reference_conv
+from mlamg_torch.train import GridBundle, lloyd_reference_conv
 
 
 def parse_bool_str(v: str) -> bool:
@@ -47,6 +47,14 @@ def load_dataset_grids(system: str):
     if not (os.path.exists(train_dir) and os.path.exists(test_dir)):
         train_dir = test_dir = system
     return Grid.load_dir(train_dir), Grid.load_dir(test_dir)
+
+
+def load_dataset(system: str, alpha: float, dtype, device=None):
+    """(train, test) GridBundles of :func:`load_dataset_grids`' grids, on
+    ``device`` (CUDA unless the caller asks for the CPU)."""
+    train, test = load_dataset_grids(system)
+    return ([GridBundle.from_grid(g, alpha, dtype, device=device) for g in train],
+            [GridBundle.from_grid(g, alpha, dtype, device=device) for g in test])
 
 
 def reference_settings(strength_measure: str, opts) -> dict:

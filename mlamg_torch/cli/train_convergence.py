@@ -33,6 +33,9 @@ from mlamg_torch.device import resolve_device
 ALPHAS = (0.05, 0.1, 0.15, 0.2, 0.25, 0.3)
 
 
+parse_bool = parse_bool_str
+
+
 def _logit(y, eps=1e-4):
     y = np.clip(y, eps, 1.0 - eps)
     return float(np.log(y / (1.0 - y)))

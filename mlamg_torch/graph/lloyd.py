@@ -113,6 +113,9 @@ def lloyd_distance(C, distance: str = "same"):
     return C.with_data(data)
 
 
+LLOYD_DISTANCES = ("unit", "abs", "inv", "same", "sub")
+
+
 def lloyd_aggregation(C, ratio: float = 0.03, maxiter: int = 10, seeds=None, key=None,
                       distance: str = "same"):
     """Aggregate nodes by Lloyd clustering on the weighted graph ``C``.

@@ -16,7 +16,6 @@ from __future__ import annotations
 
 import torch
 
-from mlamg_torch.mg.smoothers import _dinv
 from mlamg_torch.ops.matmul import spgemm_masked, spmv
 from mlamg_torch.ops.segment import tree_sum
 from mlamg_torch.ops.sparse import CSR
@@ -55,6 +54,9 @@ def power_iteration_lmax(A, Dinv=None, iters: int = 30, key=None) -> torch.Tenso
 def evolution_strength(A: CSR, *, k: int = 2, width: int, eps: float = 1e-12) -> CSR:
     """Evolution-based distance matrix on A's pattern (see module
     docstring); ``width`` bounds A's row degree."""
+    # imported here: mlamg_torch.mg's package imports this module (mg.interp)
+    from mlamg_torch.mg.smoothers import _dinv
+
     n = A.shape[0]
     Dinv = _dinv(A)
     lmax = power_iteration_lmax(A, Dinv).abs()

@@ -63,11 +63,12 @@ def amg_loss(P, A: CSR, test_vecs: torch.Tensor, tot_num_loop: int = 5,
         A_H = torch.cat([torch.cat([A_H, one], 1),
                          torch.cat([one.T, torch.zeros_like(one[:1])], 1)], 0)
 
+    # the dense products and the solve promote mixed float types, as JAX's do
     def P_mul(v):
-        return spmm(P, v) if isinstance(P, CSR) else P @ v
+        return spmm(P, v) if isinstance(P, CSR) else _promoted_matmul(P, v)
 
     def Pt_mul(v):
-        return spmm_t(P, v) if isinstance(P, CSR) else P.T @ v
+        return spmm_t(P, v) if isinstance(P, CSR) else _promoted_matmul(P.T, v)
 
     if smooth_fn is None:
         smooth_fn = lambda x: x - Dinv[:, None] * spmm(A, x)  # noqa: E731
@@ -77,7 +78,8 @@ def amg_loss(P, A: CSR, test_vecs: torch.Tensor, tot_num_loop: int = 5,
         r_H = Pt_mul(spmm(A, x))
         if neumann_solve_fix:
             r_H = torch.cat([r_H, r_H.new_zeros((1, t))], 0)
-        e_H = torch.linalg.solve_ex(A_H, -r_H)[0]  # no singularity check, as in JAX
+        dt = torch.promote_types(A_H.dtype, r_H.dtype)
+        e_H = torch.linalg.solve_ex(A_H.to(dt), -r_H.to(dt))[0]  # no singularity check, as in JAX
         if neumann_solve_fix:
             e_H = e_H[:-1]
         x = smooth_fn(x + P_mul(e_H))
@@ -94,6 +96,11 @@ def amg_loss(P, A: CSR, test_vecs: torch.Tensor, tot_num_loop: int = 5,
     n_err = 3
     convs = torch.stack(ratios[-(n_err - 1):]).prod(0) ** (1.0 / (n_err - 1))
     return torch.dot(torch.softmax(convs, 0), convs)
+
+
+def _promoted_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return a.to(dt) @ b.to(dt)
 
 
 def R_jacobi(A, omega: float = 2.0 / 3.0) -> torch.Tensor:

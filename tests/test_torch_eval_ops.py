@@ -5,6 +5,7 @@ Bellman-Ford, Lloyd from JAX's seeds, the greedy colouring, multicolor
 Gauss-Seidel, smoothed aggregation and the two-level solve with each
 smoother."""
 
+import importlib
 import os
 
 import jax
@@ -26,7 +27,6 @@ from mlamg_tpu.ops import matmul as jmm
 from mlamg_tpu.ops.sparse import CSR as JCSR
 
 from mlamg_torch.data.grid import Grid
-from mlamg_torch.graph import bellman_ford as tbf
 from mlamg_torch.graph import lloyd as tlloyd
 from mlamg_torch.graph import strength as tstrength
 from mlamg_torch.graph.topk import topk_indices, topk_mask
@@ -36,6 +36,10 @@ from mlamg_torch.mg import smoothers as tsmoothers
 from mlamg_torch.ops import matmul as tmm
 from mlamg_torch.ops.segment import tree_sum
 from mlamg_torch.ops.sparse import CSR, segment_slots, slot_sum
+
+# the module: the package re-exports its function under the same name, as
+# mlamg_tpu.graph does
+tbf = importlib.import_module("mlamg_torch.graph.bellman_ford")
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU = "cpu"

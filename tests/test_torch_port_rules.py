@@ -20,7 +20,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "mlamg_tpu")
 
 
 def port_sources():
-    files = sorted((REPO / "mlamg_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files = (sorted((REPO / "mlamg_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+             + sorted((REPO / "examples_torch").glob("*.py")))
     assert len(files) > 15
     return files
 
@@ -275,3 +276,91 @@ def test_structured_launch_counts_follow_the_hierarchy(monkeypatch):
     # bilinear: 3 levels of 7; the SA levels add 2 per smoothing factor
     assert chip_smoke.vcycle_launches(h, nu=2) == (7 + 4) + (7 + 2)
     assert factored_sa(Ad, BoxAgg2D(64, 64, 4, 4), omega=0.6).smooth_steps == 1
+
+
+# the one name the port's surfaces give otherwise: the JAX package's Pallas
+# kernel entry ``well_spmv_pallas`` is the port's CUDA kernel entry
+RENAMED = {"well_spmv_pallas": "well_spmv"}
+
+
+def jax_surface():
+    """{port module name: [(JAX name, port name, defining port module)]} from
+    every ``mlamg_tpu/**/__init__.py``'s ``from mlamg_tpu... import`` lines,
+    read by AST (nothing of the JAX package is imported)."""
+    out = {}
+    for init in sorted((REPO / "mlamg_tpu").rglob("__init__.py")):
+        package = ".".join(init.relative_to(REPO).parent.parts).replace("mlamg_tpu", "mlamg_torch", 1)
+        names = []
+        for node in ast.parse(init.read_text()).body:
+            if isinstance(node, ast.ImportFrom) and (node.module or "").startswith("mlamg_tpu"):
+                source = node.module.replace("mlamg_tpu", "mlamg_torch", 1)
+                names += [(a.name, RENAMED.get(a.name, a.name), source) for a in node.names]
+        out[package] = names
+    return out
+
+
+def test_port_surfaces_export_every_name_of_the_jax_packages():
+    import importlib
+
+    surface = jax_surface()
+    assert {"mlamg_torch", "mlamg_torch.mg", "mlamg_torch.graph", "mlamg_torch.ops"} <= set(surface)
+    counted = 0
+    for package, names in surface.items():
+        mod = importlib.import_module(package)
+        for jax_name, name, source in names:
+            assert hasattr(mod, name), f"{package} lacks {name} (JAX: {jax_name})"
+            defining = importlib.import_module(source)
+            # a submodule (``from mlamg_tpu.data import fem``) or a name of it
+            want = (importlib.import_module(f"{source}.{name}") if not hasattr(defining, name)
+                    else getattr(defining, name))
+            assert getattr(mod, name) is want, f"{package}.{name} is not {source}.{name}"
+            counted += 1
+    assert counted >= 130
+    assert sum(jax != port for names in surface.values() for jax, port, _ in names) == 1
+
+
+def test_surface_imports_build_no_kernel_and_touch_no_card():
+    """Importing every surface builds nothing and initialises no CUDA
+    context (kernels build at their first launch)."""
+    code = ("import torch, mlamg_torch, mlamg_torch.mg, mlamg_torch.graph, mlamg_torch.models, "
+            "mlamg_torch.ops, mlamg_torch.utils, mlamg_torch.data, mlamg_torch.native, "
+            "mlamg_torch.train, mlamg_torch.parallel, mlamg_torch.deploy, mlamg_torch.viz\n"
+            "from mlamg_torch.ops import _build\n"
+            "assert not torch.cuda.is_initialized()\n"
+            "assert not _build._LIBS, _build._LIBS\n"
+            "from mlamg_torch.mg import twolevel_solve, vcycle_solve, pcg, fgmres\n"
+            "from mlamg_torch.graph import lloyd_aggregation, LLOYD_DISTANCES\n"
+            "from mlamg_torch.models import FullAggNet, amg_loss\n"
+            "from mlamg_torch.ops import CSR, ELL, DIA, well_spmv\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_lloyd_distances_are_the_branches_of_lloyd_distance():
+    from mlamg_torch.graph import LLOYD_DISTANCES, lloyd_distance
+    from mlamg_torch.ops.sparse import CSR
+
+    C = CSR.from_scipy(sp.diags([-1.0, 2.0, -0.5], [-1, 0, 1], shape=(6, 6), format="csr"),
+                       device="cpu")
+    assert LLOYD_DISTANCES == ("unit", "abs", "inv", "same", "sub")
+    for d in LLOYD_DISTANCES:
+        assert lloyd_distance(C, d).shape == C.shape
+    with pytest.raises(ValueError, match="unrecognized distance"):
+        lloyd_distance(C, "other")
+
+
+EXAMPLES = sorted(p.stem for p in (REPO / "examples_torch").glob("*.py"))
+
+
+@pytest.mark.parametrize("name", EXAMPLES)
+def test_examples_default_to_cuda_and_raise_without_it(name, no_cuda):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(f"examples_torch_{name}",
+                                                  REPO / "examples_torch" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    assert mod.parse_args([]).device is None and mod.parse_args([]).dtype == "float32"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mod.main([])

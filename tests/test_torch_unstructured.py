@@ -8,6 +8,7 @@ kernel is held against that version on the card by
 ``tests/test_torch_kernels.py`` and ``chip_smoke.py``.
 """
 
+import importlib
 import time
 
 import numpy as np
@@ -31,7 +32,6 @@ from mlamg_tpu.ops.unstructured import well_spmv_pallas
 
 from mlamg_torch import native
 from mlamg_torch.data import Grid
-from mlamg_torch.graph import bellman_ford as tbf
 from mlamg_torch.graph import lloyd as tlloyd
 from mlamg_torch.graph.strength import strength_measure
 from mlamg_torch.ops import matmul, segment
@@ -39,6 +39,10 @@ from mlamg_torch.ops.sparse import CSR
 from mlamg_torch.ops.unstructured import (
     LAUNCHES, WindowedELL, rcm_spmv_setup, well_spmv, well_spmv_reference,
 )
+
+# the module: the package re-exports its function under the same name, as
+# mlamg_tpu.graph does
+tbf = importlib.import_module("mlamg_torch.graph.bellman_ford")
 
 CPU = "cpu"
 
