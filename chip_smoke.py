@@ -252,9 +252,25 @@ Phases (each prints one JSON line; any failure exits non-zero):
    of their last digit, the rest of each line equal.  0 launches of either
    kernel; the phase must finish within 150 s.
 
+16. bench, in this process after small_structured (the hull and the 4096^2
+   Poisson are still held, so neither is built again): ``bench_torch``'s
+   seven cells (``bench_torch.run_cells``, the port's counterpart of
+   bench.py) with 30 wall-time samples each.  Checks that every cell
+   passed its own check (kernels against their plain versions, the cycles'
+   convergence factors below 1, both Galerkin products against scipy, the
+   FullAggNet forward's centers, aggregates and P), that the seven metric
+   names and units are bench.py's, that ``dia_spmv`` launched on the
+   spmv, twolevel and vcycle_16m cells and ``well_spmv`` on the
+   unstructured and unstructured_multilevel cells; prints every cell's
+   value, wall and device times and idle share (wall times here follow
+   the earlier phases' profiler sessions, so ``python3 bench_torch.py`` in
+   its own process gives the benchmark's numbers); the phase must finish
+   within 150 s.
+
 Then one line ``{"kernels": [...]}`` with each kernel's launches on its
 main path (``launches_galerkin``: ``well_spmv`` in the device-built
-hierarchy's solve; ``launches_eval``, ``launches_train``, ``launches_ga``,
+hierarchy's solve; ``launches_bench``: on bench_torch's cells;
+``launches_eval``, ``launches_train``, ``launches_ga``,
 ``launches_ns``, ``launches_tools``, ``launches_dist``,
 ``launches_examples``: on the evaluation's, training's, the GA's, the
 Navier-Stokes, the tools', the distributed path and the examples, 0), its largest error
@@ -426,6 +442,20 @@ EXAMPLES_HELD = {"ga_smoke": None, "poisson1d_differentiable": 2, "learn_p_r": N
                  "diff_topk_training": None, "matconv_ga": 3,
                  "edge_removal_aggregation": None, "reinforce_centers": 1}
 EXAMPLES_SECONDS = 150.0
+# bench_torch's cells: bench.py's metrics and units, the kernel each cell's
+# path must launch, and the cells' wall-time samples here
+BENCH_METRICS = {
+    "spmv": ("spmv_hbm_roofline_fraction", "fraction_of_peak_hbm_bw"),
+    "unstructured": ("unstructured_spmv_gnnz_per_s", "Gnnz/s"),
+    "twolevel": ("twolevel_cycle_ms", "ms/iteration"),
+    "vcycle_16m": ("vcycle_16m_ms", "ms/V-cycle"),
+    "unstructured_multilevel": ("vcycle_unstructured_600k_ms", "ms/W-cycle"),
+    "rap": ("rap_spgemm_mnnz_per_s", "Mnnz(A)/s"),
+    "model_forward": ("fullaggnet_forward_ms", "ms/forward"),
+}
+BENCH_KERNEL = {"spmv": "dia_spmv", "twolevel": "dia_spmv", "vcycle_16m": "dia_spmv",
+                "unstructured": "well_spmv", "unstructured_multilevel": "well_spmv"}
+BENCH_SAMPLES, BENCH_SECONDS = 30, 150.0
 # the sparse Galerkin setup on the 600k hull: the device product's level-0
 # A_H within 1e-4 * max|A_H| of the host product's (the JAX package's bound,
 # tests/test_amg_unstructured.py), rap_learned within rtol = atol = 2e-4 of
@@ -1488,6 +1518,34 @@ def small_structured_phase() -> dict:
         check(err <= 1e-4 * scale, f"small {name} cuda vs cpu: {err} > 1e-4 * {scale}")
         res[f"{name}_max_abs_err"], res[f"{name}_scale"] = err, scale
     return res
+
+
+def bench_phase(hull, poisson) -> tuple[dict, dict]:
+    """bench_torch's seven cells in this process on the 600k hull and the
+    4096^2 Poisson already built (see the module docstring)."""
+    import bench_torch
+    from mlamg_torch.ops.unstructured import LAUNCHES
+
+    t0 = time.time()
+    # --- the main path: counts set to 0 just before, read just after ---
+    LAUNCHES.clear()
+    results, errors = bench_torch.run_cells(device="cuda", samples=BENCH_SAMPLES,
+                                            hull=hull, poisson=poisson)
+    launches = {k: LAUNCHES[k] for k in ("well_spmv", "dia_spmv")}
+    # ---------------------------------------------------------------------
+    seconds = time.time() - t0
+    check(not errors, f"bench cells failed: {errors}")
+    check({name: (r["metric"], r["unit"]) for name, r in results.items()} == BENCH_METRICS,
+          f"bench metrics {[r['metric'] for r in results.values()]} are not bench.py's")
+    for name, kernel in BENCH_KERNEL.items():
+        check(results[name]["launches"][kernel] > 0, f"{kernel} never launched on the {name} cell")
+    check(seconds <= BENCH_SECONDS, f"bench phase took {seconds:.1f} s (limit {BENCH_SECONDS} s)")
+    keys = ("value", "spmv_us", "warm_us", "library_us", "conv_factor", "iters_to_1e6",
+            "setup_s", "wall_ms", "wall_tail_ms", "tail_pct", "device_ms", "idle",
+            "fused_wall_ms", "fused_device_ms", "launches", "check")
+    return {"phase": "bench", "seconds": seconds, "launches": launches,
+            "cells": {name: {"metric": r["metric"], **{k: r[k] for k in keys if k in r}}
+                      for name, r in results.items()}}, launches
 
 
 def eval_phase() -> tuple[dict, dict]:
@@ -3019,7 +3077,7 @@ def main() -> None:
     kernel["launches"] = launches
     kernel["max_abs_err"] = max(kernel["max_abs_err"], *(e[0] for e in level_errs))
     kernel["max_rel_err"] = max(kernel["max_rel_err"], *(e[1] for e in level_errs))
-    del A, Ap
+    del Ap
 
     # --- slice 2: the structured all-DIA hierarchy (dia_spmv) ---
     stages = {}
@@ -3036,11 +3094,19 @@ def main() -> None:
     emit({"phase": "dia_kernel", **{k: dia[k] for k in ("ms", "plain_ms", "library_ms")}})
     structured, dia_launches, level_errs = structured_phase(A16, Ad, stages, rng)
     emit(structured)
-    del A16, Ad
+    del Ad
     twolevel, twolevel_launches, factor_errs = twolevel_phase(rng)
     emit(twolevel)
     emit(small_structured_phase())
     all_errs = dia_errs + level_errs + factor_errs
+
+    # --- slice 11: bench_torch's cells (both kernels on their cells) ---
+    bench_line, bench_launches = bench_phase(A, A16)
+    emit(bench_line)
+    kernel["launches_bench"] = bench_launches["well_spmv"]
+    dia.update(launches_bench=bench_launches["dia_spmv"])
+    del A, A16
+    torch.cuda.empty_cache()
 
     # --- slice 3: the learned two-level evaluation (no kernel on its path) ---
     eval_line, eval_launches = eval_phase()

@@ -1,7 +1,8 @@
-"""Rules of the port: ``mlamg_torch`` and ``chip_smoke.py`` import no JAX
-and nothing of ``mlamg_tpu``; entry points run on CUDA unless the caller
-asks for the CPU; ``chip_smoke.py`` fails where there is no card or no
-repository around it."""
+"""Rules of the port: ``mlamg_torch``, ``chip_smoke.py`` and
+``bench_torch.py`` import no JAX and nothing of ``mlamg_tpu`` (nor
+``bench_torch.py`` anything of ``bench.py``); entry points run on CUDA
+unless the caller asks for the CPU; ``chip_smoke.py`` and ``bench_torch.py``
+fail where there is no card."""
 
 import ast
 import os
@@ -20,7 +21,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "mlamg_tpu")
 
 
 def port_sources():
-    files = (sorted((REPO / "mlamg_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files = (sorted((REPO / "mlamg_torch").rglob("*.py"))
+             + [REPO / "chip_smoke.py", REPO / "bench_torch.py"]
              + sorted((REPO / "examples_torch").glob("*.py")))
     assert len(files) > 15
     return files
@@ -46,6 +48,22 @@ def test_port_imports_no_jax_and_nothing_of_mlamg_tpu():
     }
     bad = {k: v for k, v in bad.items() if v}
     assert not bad, bad
+
+
+def test_bench_torch_imports_nothing_of_bench_py():
+    """bench_torch.py keeps its own copy of what it takes from bench.py."""
+    roots = set(imported_roots(REPO / "bench_torch.py"))
+    assert not roots & {"bench", *FORBIDDEN}, roots
+    assert roots <= {"argparse", "json", "math", "subprocess", "sys", "time", "traceback",
+                     "numpy", "scipy", "torch", "mlamg_torch", "__future__"}, roots
+
+
+def test_bench_torch_fails_without_a_card():
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run([sys.executable, "bench_torch.py"], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0 and "device='cpu'" in out.stderr
+    assert '"metric"' not in out.stdout
 
 
 def test_ast_scan_catches_a_forbidden_import(tmp_path):
