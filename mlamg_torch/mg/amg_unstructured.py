@@ -33,7 +33,6 @@ SpMV-class streaming through the level operator.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Any, Mapping, Tuple
 
 import numpy as np
@@ -45,6 +44,7 @@ from mlamg_torch.ops import matmul
 from mlamg_torch.ops.segment import segment_sum
 from mlamg_torch.ops.sparse import CSR
 from mlamg_torch.utils import prng
+from mlamg_torch.utils.profiler import Profiler
 
 # ---------------------------------------------------------------------------
 # Pattern computation and truncation (host, scipy)
@@ -256,7 +256,8 @@ def uvcycle(h: UHierarchy, b: torch.Tensor, x: torch.Tensor, *,
 
     ``smoother="chebyshev"`` runs a degree-``nu+1`` Chebyshev polynomial per
     pre/post smooth, ``"jacobi"`` ``nu`` weighted-Jacobi sweeps.
-    ``gamma=1`` is a V-cycle, ``gamma=2`` a W-cycle.
+    ``gamma=1`` is a V-cycle, ``gamma=2`` a W-cycle.  Its spans are
+    :func:`mlamg_torch.mg.cycle.vcycle`'s.
     """
     from mlamg_torch.mg.smoothers import chebyshev
 
@@ -274,19 +275,26 @@ def uvcycle(h: UHierarchy, b: torch.Tensor, x: torch.Tensor, *,
 
     def descend(l, b, x):
         lev = h.levels[l]
-        x = smooth(lev, b, x)
-        r = matmul.spmv_affine(lev.A, x, c=b, alpha=-1.0)
-        r_H = restrict_factored(lev, r)
-        if l + 1 == len(h.levels):
-            e_H = h.coarse.solve(r_H)
-        else:
-            e_H = descend(l + 1, r_H, torch.zeros_like(r_H))
-            for _ in range(gamma - 1):
-                e_H = descend(l + 1, r_H, e_H)
-        x = x + interp_factored(lev, e_H)
-        return smooth(lev, b, x)
+        with Profiler("level", level=l):
+            with Profiler("pre_smooth"):
+                x = smooth(lev, b, x)
+            with Profiler("restrict"):
+                r = matmul.spmv_affine(lev.A, x, c=b, alpha=-1.0)
+                r_H = restrict_factored(lev, r)
+            if l + 1 == len(h.levels):
+                with Profiler("coarse_solve"):
+                    e_H = h.coarse.solve(r_H)
+            else:
+                e_H = descend(l + 1, r_H, torch.zeros_like(r_H))
+                for _ in range(gamma - 1):
+                    e_H = descend(l + 1, r_H, e_H)
+            with Profiler("interp"):
+                x = x + interp_factored(lev, e_H)
+            with Profiler("post_smooth"):
+                return smooth(lev, b, x)
 
-    return descend(0, b, x)
+    with Profiler("cycle"):
+        return descend(0, b, x)
 
 
 def uvcycle_solve(h: UHierarchy, b: torch.Tensor, x0: torch.Tensor, *,
@@ -302,14 +310,17 @@ def uvcycle_solve(h: UHierarchy, b: torch.Tensor, x0: torch.Tensor, *,
     err = torch.zeros(max_iter, dtype=x0.dtype, device=x0.device)
     x = x0
     iters = 0
-    while iters < max_iter:
-        x = uvcycle(h, b, x, omega_jac=omega_jac, nu=nu, smoother=smoother,
-                    lmin_frac=lmin_frac, gamma=gamma)
-        e = torch.linalg.vector_norm(matmul.spmv_affine(A, x, c=b, alpha=-1.0))
-        err[iters] = e
-        iters += 1
-        if float(e) <= res_tol:
-            break
+    with Profiler("solve"):
+        while iters < max_iter:
+            x = uvcycle(h, b, x, omega_jac=omega_jac, nu=nu, smoother=smoother,
+                        lmin_frac=lmin_frac, gamma=gamma)
+            with Profiler("residual_norm"):
+                e = torch.linalg.vector_norm(matmul.spmv_affine(A, x, c=b, alpha=-1.0))
+                err[iters] = e
+                done = float(e) <= res_tol
+            iters += 1
+            if done:
+                break
     return x, _conv_factor(err, iters), err, iters
 
 
@@ -360,11 +371,19 @@ def build_unstructured_hierarchy(
     level splits a key chain that starts at ``PRNGKey(seed)`` and draws its
     Lloyd seeds from the split-off key, as the JAX package does.
 
-    ``profile_out``, when given, receives seconds per setup stage,
-    ``rap_branch`` (per level: ``"host"``, ``"masked"`` or ``"wide"``) and
-    ``rap_levels`` (per level: ``pt_width``, ``ap_width`` (-1 on the host
-    branch) and ``rap_s``).  ``verbose`` prints a line per level and the
-    profile.
+    The build records spans (``utils/profiler.py``): ``build``, holding
+    the stage ``symmetry_check``, a ``level`` (``level=l``) per level with
+    the stages ``rcm_reorder``, ``strength_lloyd``, ``sa_omegas``,
+    (``patterns_host`` on the device branch), ``p_smooth``, ``galerkin``
+    (the product P^T A P) and ``truncate``, then ``repack`` and
+    ``coarse_factor``.  Every one is fenced: it synchronises the device
+    before it ends.  ``profile_out``, when given, receives seconds per
+    stage read from the spans (the ``galerkin`` spans under the key
+    ``rap``), ``rap_branch`` (per level: ``"host"``, ``"masked"`` or
+    ``"wide"``) and ``rap_levels`` (per level: ``pt_width``, ``ap_width``
+    (-1 on the host branch) and ``rap_s``, the level's ``galerkin`` span).
+    ``verbose`` prints a line per level and the profile.  Either turns
+    recording on for the build.
 
     Returns (hierarchy, perm): solve in permuted space, i.e. x =
     unpermute(solution of (P A P^T) y = b[perm]).
@@ -389,216 +408,227 @@ def build_unstructured_hierarchy(
         raise ValueError(f"unknown seed_mode: {seed_mode}")
     setup_dev = torch.device("cpu") if setup_on_cpu else dev
 
-    A_sp = sp.csr_matrix(A_sp).astype(np.float32)
-    if (abs(A_sp - A_sp.T) > 1e-6 * abs(A_sp).max()).nnz:
-        raise ValueError(
-            "build_unstructured_hierarchy requires a symmetric operator "
-            "(the factored restriction applies A in place of A^T)"
-        )
+    profiling = profile_out is not None or verbose
+    stages: list = []  # the stage spans, in order (level spans left out)
+    rap_widths: list = []
 
-    prof: dict = {}
-    rap_branch: list = []
-    rap_levels: list = []
-
-    def _tick(label, t0):
-        prof[label] = prof.get(label, 0.0) + (time.time() - t0)
-        return time.time()
+    def stage(name: str):
+        span = Profiler(name, fence=True)
+        stages.append(span)
+        return span
 
     key = prng.PRNGKey(seed)
     levels: list[dict] = []
     perm0 = None
-    level_A = A_sp
-    for lvl in range(max_levels - 1):
-        t = time.time()
-        n = level_A.shape[0]
-        # RCM-order this level (fine level: banded columns for the SpMV;
-        # coarse levels: keeps aggregate numbering banded for the next one)
-        perm = np.asarray(native.rcm_ordering(level_A))
-        level_A = level_A[perm][:, perm].tocsr()
-        level_A.sort_indices()
-        if lvl == 0:
-            perm0 = perm
-        else:
-            # the parent's aggregate ids follow the relabeling
-            inv = np.empty_like(perm)
-            inv[perm] = np.arange(len(perm))
-            levels[-1]["agg"] = inv[levels[-1]["agg"]]
-        t = _tick("rcm_reorder", t)
+    with Profiler.recording(profiling), Profiler("build", fence=True):
+        with stage("symmetry_check"):
+            A_sp = sp.csr_matrix(A_sp).astype(np.float32)
+            if (abs(A_sp - A_sp.T) > 1e-6 * abs(A_sp).max()).nnz:
+                raise ValueError(
+                    "build_unstructured_hierarchy requires a symmetric operator "
+                    "(the factored restriction applies A in place of A^T)"
+                )
+        level_A = A_sp
+        for lvl in range(max_levels - 1):
+            with Profiler("level", level=lvl, fence=True):
+                n = level_A.shape[0]
+                with stage("rcm_reorder"):
+                    # RCM-order this level (fine level: banded columns for the
+                    # SpMV; coarse levels: keeps aggregate numbering banded for
+                    # the next one)
+                    perm = np.asarray(native.rcm_ordering(level_A))
+                    level_A = level_A[perm][:, perm].tocsr()
+                    level_A.sort_indices()
+                    if lvl == 0:
+                        perm0 = perm
+                    else:
+                        # the parent's aggregate ids follow the relabeling
+                        inv = np.empty_like(perm)
+                        inv[perm] = np.arange(len(perm))
+                        levels[-1]["agg"] = inv[levels[-1]["agg"]]
+                    d = np.asarray(level_A.diagonal())
+                    Dinv = (1.0 / np.where(d != 0, d, 1.0)).astype(np.float32)
+                if n <= min_coarse:
+                    break
 
-        d = np.asarray(level_A.diagonal())
-        Dinv = (1.0 / np.where(d != 0, d, 1.0)).astype(np.float32)
-        if n <= min_coarse:
-            break
-        k = int(np.ceil(alpha * n))
-        a_width = int(np.diff(level_A.indptr).max())
+                with stage("strength_lloyd"):
+                    k = int(np.ceil(alpha * n))
+                    a_width = int(np.diff(level_A.indptr).max())
+                    A_setup = CSR.from_scipy(level_A, dtype=torch.float32, device=setup_dev)
+                    C = strength_measure(A_setup, strength_kind, width=a_width)
+                    key, sub = prng.split(key)
+                    if seed_mode == "stride":
+                        # the level is RCM-ordered, so an index stride is a
+                        # spatially stratified seeding
+                        seeds = np.unique(np.linspace(0, n - 1, k).round().astype(np.int32))
+                        k = int(seeds.shape[0])
+                        agg_id, _, _ = lloyd_aggregation(C, maxiter=lloyd_maxiter, seeds=seeds)
+                    else:
+                        agg_id, _, _ = lloyd_aggregation(
+                            C, ratio=alpha, maxiter=lloyd_maxiter, key=sub
+                        )
+                    agg = agg_id.cpu().numpy().copy()
+                    if not rap_on_device:
+                        A_dev = None
+                    elif setup_dev != dev:
+                        A_dev = CSR.from_scipy(level_A, dtype=torch.float32, device=dev)
+                    else:
+                        A_dev = A_setup
 
-        A_setup = CSR.from_scipy(level_A, dtype=torch.float32, device=setup_dev)
-        C = strength_measure(A_setup, strength_kind, width=a_width)
-        key, sub = prng.split(key)
-        if seed_mode == "stride":
-            # the level is RCM-ordered, so an index stride is a spatially
-            # stratified seeding
-            seeds = np.unique(np.linspace(0, n - 1, k).round().astype(np.int32))
-            k = int(seeds.shape[0])
-            agg_id, _, _ = lloyd_aggregation(C, maxiter=lloyd_maxiter, seeds=seeds)
-        else:
-            agg_id, _, _ = lloyd_aggregation(
-                C, ratio=alpha, maxiter=lloyd_maxiter, key=sub
+                with stage("sa_omegas"):
+                    un = agg >= k
+                    if un.any():
+                        # nodes unreachable from every seed: singleton aggregates
+                        agg[un] = k + np.arange(int(un.sum()))
+                        k += int(un.sum())
+                    # drop empty aggregates (they would give zero coarse rows)
+                    used = np.unique(agg)
+                    if used.shape[0] < k:
+                        remap = np.zeros(k, np.int64)
+                        remap[used] = np.arange(used.shape[0])
+                        agg = remap[agg]
+                        k = int(used.shape[0])
+                    # rigorous Gershgorin bound of D^-1 A (a power iteration's
+                    # underestimate puts the true lmax outside the Chebyshev
+                    # interval)
+                    coo = level_A.tocoo()
+                    absrow = np.bincount(coo.row, weights=np.abs(coo.data), minlength=n)
+                    lmax = np.float32(np.max(absrow / np.abs(np.where(d != 0, d, 1.0))))
+                    lmax_s = lmax if lmax > 0 else np.float32(1.0)
+                    if smooth_steps == 1:
+                        omegas = np.array([np.float32(4.0 / 3.0) / lmax_s], np.float32)
+                    else:
+                        # inverse Chebyshev roots over [lmax/15, lmax]
+                        a_b = lmax_s / np.float32(15.0)
+                        b_b = lmax_s
+                        ang = ((2.0 * np.arange(1, smooth_steps + 1) - 1)
+                               / (2.0 * smooth_steps) * np.pi)
+                        roots = ((a_b + b_b) / np.float32(2.0)
+                                 + (b_b - a_b) / np.float32(2.0) * np.cos(ang).astype(np.float32))
+                        omegas = (np.float32(1.0) / roots).astype(np.float32)
+
+                if A_dev is None:
+                    with stage("p_smooth"):
+                        Psp = host_prolongator(level_A, agg, k, Dinv, omegas)
+                    with stage("galerkin"):
+                        AH_sp = (Psp.T @ (level_A @ Psp)).tocsr()
+                    branch, pt_width, ap_width = "host", -1, -1
+                else:
+                    AH_sp, branch, pt_width, ap_width = _device_rap_level(
+                        level_A, A_dev, agg, k, a_width, omegas, Dinv, smooth_steps, stage)
+                rap_widths.append((branch, pt_width, ap_width))
+                with stage("truncate"):
+                    AH_sp.sum_duplicates()
+                    AH_sp.eliminate_zeros()
+                    AH_sp = truncate_lump(AH_sp, trunc_theta)
+
+                levels.append(dict(A=level_A, Dinv=Dinv, agg=agg, omegas=omegas,
+                                   lmax=lmax, k=k))
+                if verbose:
+                    print(f"level {lvl}: n={n} nnz={level_A.nnz} -> k={k} nnz(A_H)={AH_sp.nnz} "
+                          f"(widths a={a_width} pt={pt_width} ap={ap_width}) [{branch} rap]",
+                          flush=True)
+                level_A = AH_sp
+
+        with stage("repack"):
+            ulevels = tuple(_make_level(lev, fmt, block_rows, dev) for lev in levels)
+        with stage("coarse_factor"):
+            coarse = CoarseSolver.factor(
+                torch.from_numpy(level_A.toarray().astype(np.float32)).to(dev),
+                method=coarse_method,
             )
-        agg = agg_id.cpu().numpy().copy()
-        if not rap_on_device:
-            A_dev = None
-        elif setup_dev != dev:
-            A_dev = CSR.from_scipy(level_A, dtype=torch.float32, device=dev)
-        else:
-            A_dev = A_setup
-        t = _tick("strength_lloyd", t)
-        un = agg >= k
-        if un.any():
-            # nodes unreachable from every seed: singleton aggregates
-            agg[un] = k + np.arange(int(un.sum()))
-            k += int(un.sum())
-        # drop empty aggregates (they would give zero coarse rows)
-        used = np.unique(agg)
-        if used.shape[0] < k:
-            remap = np.zeros(k, np.int64)
-            remap[used] = np.arange(used.shape[0])
-            agg = remap[agg]
-            k = int(used.shape[0])
-
-        # rigorous Gershgorin bound of D^-1 A (a power iteration's
-        # underestimate puts the true lmax outside the Chebyshev interval)
-        coo = level_A.tocoo()
-        absrow = np.bincount(coo.row, weights=np.abs(coo.data), minlength=n)
-        lmax = np.float32(np.max(absrow / np.abs(np.where(d != 0, d, 1.0))))
-        lmax_s = lmax if lmax > 0 else np.float32(1.0)
-        if smooth_steps == 1:
-            omegas = np.array([np.float32(4.0 / 3.0) / lmax_s], np.float32)
-        else:
-            # inverse Chebyshev roots over [lmax/15, lmax]
-            a_b = lmax_s / np.float32(15.0)
-            b_b = lmax_s
-            ang = (2.0 * np.arange(1, smooth_steps + 1) - 1) / (2.0 * smooth_steps) * np.pi
-            roots = (a_b + b_b) / np.float32(2.0) + (b_b - a_b) / np.float32(2.0) * np.cos(ang).astype(np.float32)
-            omegas = (np.float32(1.0) / roots).astype(np.float32)
-        t = _tick("sa_omegas", t)
-
-        if A_dev is None:
-            Psp = host_prolongator(level_A, agg, k, Dinv, omegas)
-            t = _tick("p_smooth", t)
-            AH_sp = (Psp.T @ (level_A @ Psp)).tocsr()
-            branch, pt_width, ap_width = "host", -1, -1
-            rap_s = time.time() - t
-            t = _tick("rap", t)
-        else:
-            AH_sp, branch, pt_width, ap_width, rap_s, t = _device_rap_level(
-                level_A, A_dev, agg, k, a_width, omegas, Dinv, smooth_steps, _tick, t)
-        rap_branch.append(branch)
-        rap_levels.append({"pt_width": pt_width, "ap_width": ap_width, "rap_s": rap_s})
-        AH_sp.sum_duplicates()
-        AH_sp.eliminate_zeros()
-        AH_sp = truncate_lump(AH_sp, trunc_theta)
-        t = _tick("truncate", t)
-
-        levels.append(dict(A=level_A, Dinv=Dinv, agg=agg, omegas=omegas,
-                           lmax=lmax, k=k))
+    if profiling:
+        # the stage seconds, read from the spans; the product stage's key
+        # is "rap"
+        prof: dict = {}
+        for span in stages:
+            key_s = "rap" if span.name == "galerkin" else span.name
+            prof[key_s] = prof.get(key_s, 0.0) + span.duration_s
+        rap_s = [span.duration_s for span in stages if span.name == "galerkin"]
         if verbose:
-            print(f"level {lvl}: n={n} nnz={level_A.nnz} -> k={k} nnz(A_H)={AH_sp.nnz} "
-                  f"(widths a={a_width} pt={pt_width} ap={ap_width}) [{branch} rap]",
+            print(f"setup profile (s): {dict(sorted(prof.items(), key=lambda kv: -kv[1]))}",
                   flush=True)
-        level_A = AH_sp
-
-    t = time.time()
-    ulevels = tuple(_make_level(lev, fmt, block_rows, dev) for lev in levels)
-    t = _tick("repack", t)
-    coarse = CoarseSolver.factor(
-        torch.from_numpy(level_A.toarray().astype(np.float32)).to(dev),
-        method=coarse_method,
-    )
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    _tick("coarse_factor", t)
-    if verbose:
-        print(f"setup profile (s): {dict(sorted(prof.items(), key=lambda kv: -kv[1]))}",
-              flush=True)
-    if profile_out is not None:
-        profile_out.update(prof, rap_branch=rap_branch, rap_levels=rap_levels)
+        if profile_out is not None:
+            profile_out.update(
+                prof, rap_branch=[br for br, _, _ in rap_widths],
+                rap_levels=[{"pt_width": pt, "ap_width": ap, "rap_s": t}
+                            for (_, pt, ap), t in zip(rap_widths, rap_s)])
     return UHierarchy(ulevels, coarse), perm0
 
 
 def _device_rap_level(level_A, A_dev: CSR, agg, k: int, a_width: int, omegas, Dinv,
-                      smooth_steps: int, _tick, t):
+                      smooth_steps: int, stage):
     """One level of the ``rap_mode="device"`` path: P on the device, then
     its Galerkin product by :func:`rap_masked`, or in scipy on a wide
-    level.  Returns (AH_sp, branch, pt_width, ap_width, rap seconds, t)."""
+    level, in the stage spans ``stage(name)`` opens.  Returns (AH_sp,
+    branch, pt_width, ap_width)."""
     import scipy.sparse as sp
     from mlamg_torch.mg.interp import smoothed_aggregation
 
     n = level_A.shape[0]
     dev = A_dev.device
-    Ppat, APpat, AHpat = galerkin_patterns(level_A, agg, k, smooth_steps=smooth_steps)
-    t = _tick("patterns_host", t)
+    with stage("patterns_host"):
+        Ppat, APpat, AHpat = galerkin_patterns(level_A, agg, k, smooth_steps=smooth_steps)
 
-    P_dev = smoothed_aggregation(A_dev, torch.from_numpy(agg).to(dev), k,
-                                 omega=float(omegas[0]))
-    p_width = a_width
-    if smooth_steps > 1:
-        # widen P step by step, P_{j+1} = P_j - w_{j+1} D^-1 A P_j, on the
-        # host-known patterns B^j P1pat; P_j's entries are added in at their
-        # positions in the wider pattern (found by searchsorted on the host)
-        coo0 = level_A.tocoo()
-        pat_j = sp.csr_matrix(
-            (np.ones(level_A.nnz, np.float64), (coo0.row, agg[coo0.col])), shape=(n, k))
-        pat_j.sum_duplicates()
-        pat_j.data[:] = 1.0
-        pat_j.sort_indices()
-        Bpat = sp.csr_matrix(
-            (np.ones(level_A.nnz, np.float64), level_A.indices, level_A.indptr), shape=(n, n))
-        Dinv_dev = torch.from_numpy(Dinv).to(dev)
-        # P1 lives on A's (row, agg[col]) coordinates, duplicates included
-        keys_j = coo0.row.astype(np.int64) * (k + 1) + agg[coo0.col].astype(np.int64)
-        for j in range(1, smooth_steps):
-            pat_next = (Bpat @ pat_j).tocsr()
-            pat_next.data[:] = 1.0
-            pat_next.sort_indices()
-            nxt = pat_next.tocoo()
-            keys_next = nxt.row.astype(np.int64) * (k + 1) + nxt.col.astype(np.int64)
-            pj_width = int(np.diff(pat_j.indptr).max()) if j > 1 else a_width
-            APj = matmul.spgemm_masked(A_dev, P_dev, _pattern_csr(pat_next, dev),
-                                       a_width=a_width, b_width=pj_width,
-                                       chunk=_auto_chunk(pj_width))
-            rows = APj.row.clamp(max=n - 1)
-            base = torch.where(APj.mask, -float(omegas[j]) * Dinv_dev[rows] * APj.data,
-                               torch.zeros_like(APj.data))
-            # P_j's padded tail slots go to a dump slot past the end
-            pos = np.full(P_dev.nnz_pad, base.shape[0], np.int64)
-            pos[:keys_j.shape[0]] = np.searchsorted(keys_next, keys_j)
-            data = torch.cat([base, base.new_zeros(1)]).index_add(
-                0, torch.from_numpy(pos).to(dev), P_dev.data)[:-1]
-            P_dev = APj.with_data(data)
-            pat_j, keys_j = pat_next, keys_next
-        p_width = int(np.diff(pat_j.indptr).max())
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    t = _tick("p_smooth", t)
+    with stage("p_smooth"):
+        P_dev = smoothed_aggregation(A_dev, torch.from_numpy(agg).to(dev), k,
+                                     omega=float(omegas[0]))
+        p_width = a_width
+        if smooth_steps > 1:
+            # widen P step by step, P_{j+1} = P_j - w_{j+1} D^-1 A P_j, on the
+            # host-known patterns B^j P1pat; P_j's entries are added in at
+            # their positions in the wider pattern (found by searchsorted on
+            # the host)
+            coo0 = level_A.tocoo()
+            pat_j = sp.csr_matrix(
+                (np.ones(level_A.nnz, np.float64), (coo0.row, agg[coo0.col])), shape=(n, k))
+            pat_j.sum_duplicates()
+            pat_j.data[:] = 1.0
+            pat_j.sort_indices()
+            Bpat = sp.csr_matrix(
+                (np.ones(level_A.nnz, np.float64), level_A.indices, level_A.indptr),
+                shape=(n, n))
+            Dinv_dev = torch.from_numpy(Dinv).to(dev)
+            # P1 lives on A's (row, agg[col]) coordinates, duplicates included
+            keys_j = coo0.row.astype(np.int64) * (k + 1) + agg[coo0.col].astype(np.int64)
+            for j in range(1, smooth_steps):
+                pat_next = (Bpat @ pat_j).tocsr()
+                pat_next.data[:] = 1.0
+                pat_next.sort_indices()
+                nxt = pat_next.tocoo()
+                keys_next = nxt.row.astype(np.int64) * (k + 1) + nxt.col.astype(np.int64)
+                pj_width = int(np.diff(pat_j.indptr).max()) if j > 1 else a_width
+                APj = matmul.spgemm_masked(A_dev, P_dev, _pattern_csr(pat_next, dev),
+                                           a_width=a_width, b_width=pj_width,
+                                           chunk=_auto_chunk(pj_width))
+                rows = APj.row.clamp(max=n - 1)
+                base = torch.where(APj.mask, -float(omegas[j]) * Dinv_dev[rows] * APj.data,
+                                   torch.zeros_like(APj.data))
+                # P_j's padded tail slots go to a dump slot past the end
+                pos = np.full(P_dev.nnz_pad, base.shape[0], np.int64)
+                pos[:keys_j.shape[0]] = np.searchsorted(keys_next, keys_j)
+                data = torch.cat([base, base.new_zeros(1)]).index_add(
+                    0, torch.from_numpy(pos).to(dev), P_dev.data)[:-1]
+                P_dev = APj.with_data(data)
+                pat_j, keys_j = pat_next, keys_next
+            p_width = int(np.diff(pat_j.indptr).max())
 
-    if smooth_steps == 1:
-        pt_width = int(np.bincount(agg[level_A.tocoo().col], minlength=k).max())
-    else:
-        pt_width = int(np.diff(Ppat.tocsc().indptr).max())
-    ap_width = int(np.diff(APpat.indptr).max())
-    if pt_width * ap_width <= WIDE_SLOTS:
-        AH = rap_masked(A_dev, P_dev, _pattern_csr(APpat, dev), _pattern_csr(AHpat, dev),
-                        a_width=a_width, p_width=p_width, pt_width=pt_width,
-                        ap_width=ap_width)
-        AH_sp, branch = AH.to_scipy(), "masked"
-    else:
-        # deep levels grow wide aggregate supports: most of the masked
-        # product's pt x ap slots per coarse entry would be padding, and
-        # the level is small enough for scipy
-        Psp = P_dev.to_scipy()
-        Psp.sum_duplicates()
-        AH_sp, branch = (Psp.T @ level_A @ Psp).tocsr(), "wide"
-    rap_s = time.time() - t
-    t = _tick("rap", t)
-    return AH_sp, branch, pt_width, ap_width, rap_s, t
+    with stage("galerkin"):
+        if smooth_steps == 1:
+            pt_width = int(np.bincount(agg[level_A.tocoo().col], minlength=k).max())
+        else:
+            pt_width = int(np.diff(Ppat.tocsc().indptr).max())
+        ap_width = int(np.diff(APpat.indptr).max())
+        if pt_width * ap_width <= WIDE_SLOTS:
+            AH = rap_masked(A_dev, P_dev, _pattern_csr(APpat, dev), _pattern_csr(AHpat, dev),
+                            a_width=a_width, p_width=p_width, pt_width=pt_width,
+                            ap_width=ap_width)
+            AH_sp, branch = AH.to_scipy(), "masked"
+        else:
+            # deep levels grow wide aggregate supports: most of the masked
+            # product's pt x ap slots per coarse entry would be padding, and
+            # the level is small enough for scipy
+            Psp = P_dev.to_scipy()
+            Psp.sum_duplicates()
+            AH_sp, branch = (Psp.T @ level_A @ Psp).tocsr(), "wide"
+    return AH_sp, branch, pt_width, ap_width

@@ -32,6 +32,7 @@ from mlamg_torch.ops import matmul
 from mlamg_torch.ops.dia import DIA, dia_jacobi_operator
 from mlamg_torch.ops.sparse import CSR, ELL
 from mlamg_torch.utils import prng
+from mlamg_torch.utils.profiler import Profiler
 
 
 def _is_factored(P) -> bool:
@@ -269,7 +270,13 @@ def vcycle(h: Hierarchy, b: torch.Tensor, x: torch.Tensor, *, omega: float = 0.6
     Chebyshev polynomial per pre/post smooth, ``"jacobi"`` ``nu`` weighted
     Jacobi sweeps.  ``nu`` is any integer (numpy's too) or a per-level
     sequence whose last entry covers the deeper levels.  ``gamma=1`` is a
-    V-cycle, ``gamma=2`` a W-cycle."""
+    V-cycle, ``gamma=2`` a W-cycle.
+
+    Spans (``utils/profiler.py``, while recording): ``cycle``; a ``level``
+    (``level=l``) per visit of a level, holding ``pre_smooth``,
+    ``restrict`` (the residual and its restriction), the next level's
+    visits or, on the deepest, ``coarse_solve``, then ``interp`` (the
+    interpolation and the correction) and ``post_smooth``."""
     if smoother not in ("jacobi", "chebyshev"):
         raise ValueError(f"unknown smoother {smoother}")
 
@@ -286,19 +293,26 @@ def vcycle(h: Hierarchy, b: torch.Tensor, x: torch.Tensor, *, omega: float = 0.6
                 x = x + omega * Dinv * (b - _level_spmv(A, x))
             return x
 
-        x = smooth(x)
-        r = b - _level_spmv(A, x)
-        r_H = _restrict(h.Ps[l], r)
-        if l + 1 == len(h.As):
-            e_H = h.coarse.solve(r_H)
-        else:
-            e_H = descend(l + 1, r_H, torch.zeros_like(r_H))
-            for _ in range(gamma - 1):
-                e_H = descend(l + 1, r_H, e_H)
-        x = x + _interp(h.Ps[l], e_H)
-        return smooth(x)
+        with Profiler("level", level=l):
+            with Profiler("pre_smooth"):
+                x = smooth(x)
+            with Profiler("restrict"):
+                r = b - _level_spmv(A, x)
+                r_H = _restrict(h.Ps[l], r)
+            if l + 1 == len(h.As):
+                with Profiler("coarse_solve"):
+                    e_H = h.coarse.solve(r_H)
+            else:
+                e_H = descend(l + 1, r_H, torch.zeros_like(r_H))
+                for _ in range(gamma - 1):
+                    e_H = descend(l + 1, r_H, e_H)
+            with Profiler("interp"):
+                x = x + _interp(h.Ps[l], e_H)
+            with Profiler("post_smooth"):
+                return smooth(x)
 
-    return descend(0, b, x)
+    with Profiler("cycle"):
+        return descend(0, b, x)
 
 
 def vcycle_solve(h: Hierarchy, b: torch.Tensor, x0: torch.Tensor, *,
@@ -310,11 +324,14 @@ def vcycle_solve(h: Hierarchy, b: torch.Tensor, x0: torch.Tensor, *,
     err = torch.zeros(max_iter, dtype=x0.dtype, device=x0.device)
     x = x0
     iters = 0
-    while iters < max_iter:
-        x = vcycle(h, b, x, omega=omega, nu=nu)
-        e = torch.linalg.vector_norm(b - _level_spmv(A, x))
-        err[iters] = e
-        iters += 1
-        if float(e) <= res_tol:
-            break
+    with Profiler("solve"):
+        while iters < max_iter:
+            x = vcycle(h, b, x, omega=omega, nu=nu)
+            with Profiler("residual_norm"):
+                e = torch.linalg.vector_norm(b - _level_spmv(A, x))
+                err[iters] = e
+                done = float(e) <= res_tol
+            iters += 1
+            if done:
+                break
     return x, _conv_factor(err, iters), err, iters

@@ -25,6 +25,7 @@ from mlamg_torch.mg.factored import BilinearP2D, BoxAgg2D, factored_sa
 from mlamg_torch.mg.smoothers import _dinv
 from mlamg_torch.ops import matmul
 from mlamg_torch.ops.dia import DIA
+from mlamg_torch.utils.profiler import Profiler
 
 
 def _decompose_offsets(offsets, nx: int):
@@ -86,28 +87,30 @@ def dia_galerkin_probe(A: DIA, P) -> DIA:
 
     # one probe per color: indicator over same-colored coarse cells
     images = {}
-    for cy in range(cy_stride):
-        for cx in range(cx_stride):
-            probe = ((color_y == cy) & (color_x == cx)).to(dtype).reshape(k)
-            y = P.restrict(matmul.spmv(A, P.interp(probe)))
-            images[(cy, cx)] = y.reshape(ncy, ncx)
+    with Profiler("probes", fence=True):
+        for cy in range(cy_stride):
+            for cx in range(cx_stride):
+                probe = ((color_y == cy) & (color_x == cx)).to(dtype).reshape(k)
+                y = P.restrict(matmul.spmv(A, P.interp(probe)))
+                images[(cy, cx)] = y.reshape(ncy, ncx)
 
     # read the coarse stencil: A_H[I, I + (Dy, Dx)] = image_{color(I+D)}[I]
     offsets = []
     rows = []
-    for Dy in range(-Ry, Ry + 1):
-        for Dx in range(-Rx, Rx + 1):
-            inside = ((iy + Dy >= 0) & (iy + Dy < ncy)
-                      & (ix + Dx >= 0) & (ix + Dx < ncx))
-            data = torch.zeros((ncy, ncx), dtype=dtype, device=dev)
-            for cy in range(cy_stride):
-                for cx in range(cx_stride):
-                    img = images[((cy + Dy) % cy_stride, (cx + Dx) % cx_stride)]
-                    mask = (color_y == cy) & (color_x == cx) & inside
-                    data = torch.where(mask, img, data)
-            offsets.append(Dy * ncx + Dx)
-            rows.append(data.reshape(k))
-    return DIA(torch.stack(rows), tuple(offsets), (k, k))
+    with Profiler("stencil_read", fence=True):
+        for Dy in range(-Ry, Ry + 1):
+            for Dx in range(-Rx, Rx + 1):
+                inside = ((iy + Dy >= 0) & (iy + Dy < ncy)
+                          & (ix + Dx >= 0) & (ix + Dx < ncx))
+                data = torch.zeros((ncy, ncx), dtype=dtype, device=dev)
+                for cy in range(cy_stride):
+                    for cx in range(cx_stride):
+                        img = images[((cy + Dy) % cy_stride, (cx + Dx) % cx_stride)]
+                        mask = (color_y == cy) & (color_x == cx) & inside
+                        data = torch.where(mask, img, data)
+                offsets.append(Dy * ncx + Dx)
+                rows.append(data.reshape(k))
+        return DIA(torch.stack(rows), tuple(offsets), (k, k))
 
 
 def build_structured_hierarchy(
@@ -136,6 +139,12 @@ def build_structured_hierarchy(
 
     Each level's ``lmax`` is the Gershgorin bound of D^-1 A, kept as a host
     float.  The coarsest operator is inverted densely (``coarse_method``).
+
+    Spans (``utils/profiler.py``, while recording), each fenced: ``build``;
+    per level a ``level`` (``level=l``) holding ``lmax`` (Dinv and the
+    Gershgorin bound, read on the host), ``prolongator`` and ``galerkin``
+    (:func:`dia_galerkin_probe`: ``probes``, the applications of P^T A P,
+    then ``stencil_read``, the colour masks); then ``coarse_factor``.
     """
     As = [A]
     Ps = []
@@ -147,33 +156,40 @@ def build_structured_hierarchy(
         tuple(smooth_steps) if np.ndim(smooth_steps) else
         (int(smooth_steps),) * len(sides)
     )
-    for side, s_l in zip(sides, steps):
-        sy = sx = side
-        if kind == "bilinear" and side != 2:
-            raise ValueError("kind='bilinear' requires every side to be 2")
-        if cy % sy or cx % sx or (cy // sy) * (cx // sx) <= min_coarse:
-            break
-        Dinv_l = _dinv(level_A)
-        # Gershgorin bound of D^-1 A (a power iteration's underestimate can
-        # put the true lmax outside the Chebyshev interval)
-        lmax_l = float(torch.max(level_A.data.abs().sum(0) * Dinv_l.abs()))
-        if kind == "bilinear":
-            P = BilinearP2D(ny=cy, nx=cx)
-        else:
-            P = factored_sa(
-                level_A, BoxAgg2D(ny=cy, nx=cx, sy=sy, sx=sx),
-                omega=None if s_l > 1 else omega,
-                smooth_steps=s_l, lmax=lmax_l,
-            )
-        try:
-            A_next = dia_galerkin_probe(level_A, P)
-        except ValueError:
-            break  # coarse grid too narrow for the stencil reach: stop here
-        Dinvs.append(Dinv_l)
-        lmaxs.append(lmax_l)
-        cy, cx = cy // sy, cx // sx
-        Ps.append(P)
-        As.append(A_next)
-        level_A = A_next
-    coarse = CoarseSolver.factor(As[-1].todense(), method=coarse_method)
+    with Profiler("build", fence=True):
+        for lvl, (side, s_l) in enumerate(zip(sides, steps)):
+            sy = sx = side
+            if kind == "bilinear" and side != 2:
+                raise ValueError("kind='bilinear' requires every side to be 2")
+            if cy % sy or cx % sx or (cy // sy) * (cx // sx) <= min_coarse:
+                break
+            with Profiler("level", level=lvl, fence=True):
+                with Profiler("lmax", fence=True):
+                    Dinv_l = _dinv(level_A)
+                    # Gershgorin bound of D^-1 A (a power iteration's
+                    # underestimate can put the true lmax outside the
+                    # Chebyshev interval)
+                    lmax_l = float(torch.max(level_A.data.abs().sum(0) * Dinv_l.abs()))
+                with Profiler("prolongator", fence=True):
+                    if kind == "bilinear":
+                        P = BilinearP2D(ny=cy, nx=cx)
+                    else:
+                        P = factored_sa(
+                            level_A, BoxAgg2D(ny=cy, nx=cx, sy=sy, sx=sx),
+                            omega=None if s_l > 1 else omega,
+                            smooth_steps=s_l, lmax=lmax_l,
+                        )
+                try:
+                    with Profiler("galerkin", fence=True):
+                        A_next = dia_galerkin_probe(level_A, P)
+                except ValueError:
+                    break  # coarse grid too narrow for the stencil reach: stop here
+            Dinvs.append(Dinv_l)
+            lmaxs.append(lmax_l)
+            cy, cx = cy // sy, cx // sx
+            Ps.append(P)
+            As.append(A_next)
+            level_A = A_next
+        with Profiler("coarse_factor", fence=True):
+            coarse = CoarseSolver.factor(As[-1].todense(), method=coarse_method)
     return Hierarchy(tuple(As[:-1]), tuple(Ps), tuple(Dinvs), coarse, tuple(lmaxs))

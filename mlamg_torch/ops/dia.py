@@ -31,7 +31,7 @@ import torch
 
 from mlamg_torch.device import resolve_device
 from mlamg_torch.ops import _build
-from mlamg_torch.ops.unstructured import LAUNCHES
+from mlamg_torch.utils.profiler import LAUNCHES
 
 # Most diagonals the CUDA kernel takes (its offsets travel by value in the
 # launch parameters; must equal DIA_MAX_D in csrc/dia_spmv.cu).

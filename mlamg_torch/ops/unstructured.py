@@ -42,7 +42,6 @@ to part j % lanes); :func:`sliced_spmv_reference` repeats its arithmetic.
 
 from __future__ import annotations
 
-import collections
 import ctypes
 import dataclasses
 from typing import Tuple
@@ -52,9 +51,9 @@ import torch
 
 from mlamg_torch.device import resolve_device
 from mlamg_torch.ops import _build
-
-# Kernel launches by name; a wrapper adds one per successful launch.
-LAUNCHES: collections.Counter = collections.Counter()
+# kernel launches by name (the counter store of utils/profiler.py); a wrapper
+# adds one per successful launch
+from mlamg_torch.utils.profiler import LAUNCHES
 
 SLICE = 32  # rows per slice: one warp, so every slot load is one 128 B access
 SIGMA = 256  # rows per degree-sorting window
