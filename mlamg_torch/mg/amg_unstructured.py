@@ -44,7 +44,7 @@ from mlamg_torch.ops import matmul
 from mlamg_torch.ops.segment import segment_sum
 from mlamg_torch.ops.sparse import CSR
 from mlamg_torch.utils import prng
-from mlamg_torch.utils.profiler import Profiler
+from mlamg_torch.utils.profiler import GRAPHS, LAUNCHES, Profiler
 
 # ---------------------------------------------------------------------------
 # Pattern computation and truncation (host, scipy)
@@ -199,6 +199,10 @@ class ULevel:
 class UHierarchy:
     levels: Tuple[ULevel, ...]
     coarse: CoarseSolver
+    # uvcycle_solve's CUDA graphs of one cycle (:class:`CycleGraph`), by
+    # cycle setting and b's shape, dtype and device; freed with the hierarchy
+    graphs: dict = dataclasses.field(default_factory=dict, init=False, compare=False,
+                                     repr=False)
 
     @property
     def num_levels(self) -> int:
@@ -257,8 +261,17 @@ def uvcycle(h: UHierarchy, b: torch.Tensor, x: torch.Tensor, *,
     ``smoother="chebyshev"`` runs a degree-``nu+1`` Chebyshev polynomial per
     pre/post smooth, ``"jacobi"`` ``nu`` weighted-Jacobi sweeps.
     ``gamma=1`` is a V-cycle, ``gamma=2`` a W-cycle.  Its spans are
-    :func:`mlamg_torch.mg.cycle.vcycle`'s.
+    :func:`mlamg_torch.mg.cycle.vcycle`'s, its ``cycle`` span with
+    ``graph="eager"`` (:func:`uvcycle_solve` replays graphs of it).
     """
+    with Profiler("cycle", graph="eager"):
+        return _cycle(h, b, x, omega_jac=omega_jac, nu=nu, smoother=smoother,
+                      lmin_frac=lmin_frac, gamma=gamma)
+
+
+def _cycle(h: UHierarchy, b: torch.Tensor, x: torch.Tensor, *, omega_jac: float,
+           nu: int, smoother: str, lmin_frac: float, gamma: int) -> torch.Tensor:
+    """:func:`uvcycle` without its ``cycle`` span."""
     from mlamg_torch.mg.smoothers import chebyshev
 
     if smoother not in ("chebyshev", "jacobi"):
@@ -293,8 +306,45 @@ def uvcycle(h: UHierarchy, b: torch.Tensor, x: torch.Tensor, *,
             with Profiler("post_smooth"):
                 return smooth(lev, b, x)
 
-    with Profiler("cycle"):
-        return descend(0, b, x)
+    return descend(0, b, x)
+
+
+class CycleGraph:
+    """One cycle of :func:`uvcycle_solve` captured as a CUDA graph: its
+    static ``b`` and ``x``, and the graph, which reads the hierarchy's
+    tensors by address and holds its temporaries in a memory pool of its
+    own.  A replay runs the cycle on ``b`` and ``x`` and leaves the result
+    in ``x``; the cycle's host floats (``lmax``, ``omegas``, the Chebyshev
+    recurrence's scalars) are baked in, and the hierarchy's are frozen.
+
+    It is captured on a side stream with ``capture_begin``/``capture_end``
+    (``torch.cuda.graph`` would run a garbage collection and empty the
+    allocator's cache first), from inputs the caller has warmed with one
+    eager cycle.  Capturing runs nothing: the caller replays after it.
+    ``launches`` is what the kernels' wrappers counted into ``LAUNCHES``
+    while they were captured, the hand-written kernels' launches of one
+    replay: taken back out at capture and added at each replay, so
+    ``LAUNCHES`` counts launches on the device."""
+
+    def __init__(self, h: UHierarchy, b: torch.Tensor, x: torch.Tensor, settings: dict):
+        self.b, self.x = b.clone(), x.clone()
+        self.graph = torch.cuda.CUDAGraph()
+        counted = LAUNCHES.copy()
+        stream = torch.cuda.Stream(b.device)
+        stream.wait_stream(torch.cuda.current_stream(b.device))
+        with torch.cuda.stream(stream):
+            self.graph.capture_begin()  # without a pool: a private one
+            try:
+                self.x.copy_(_cycle(h, self.b, self.x, **settings))
+            finally:
+                self.graph.capture_end()
+        self.launches = LAUNCHES - counted
+        LAUNCHES.subtract(self.launches)
+
+    def replay(self) -> torch.Tensor:
+        self.graph.replay()
+        LAUNCHES.update(self.launches)
+        return self.x
 
 
 def uvcycle_solve(h: UHierarchy, b: torch.Tensor, x0: torch.Tensor, *,
@@ -303,17 +353,42 @@ def uvcycle_solve(h: UHierarchy, b: torch.Tensor, x0: torch.Tensor, *,
                   smoother: str = "chebyshev", lmin_frac: float = 1.0 / 30.0,
                   gamma: int = 1):
     """Iterated cycles until ||b - A x|| <= res_tol or ``max_iter``, with
-    the conv-factor readout.  Returns (x, conv, err, iters)."""
+    the conv-factor readout.  Returns (x, conv, err, iters).
+
+    On a CUDA ``b`` the cycle is a :class:`CycleGraph`, one per cycle
+    setting and b's shape, dtype and device, kept in ``h.graphs``: the
+    hierarchy's first solve runs its first cycle eagerly, captures the
+    second and replays it from then on; a later solve copies b and x0 into
+    the graph's buffers and replays every cycle.  The residual norm and its
+    host read stay outside the graph.  On the CPU every cycle is eager.
+    ``GRAPHS`` counts each cycle under ``uvcycle.eager``, ``.capture`` or
+    ``.replay``, as does the ``graph`` attribute of its ``cycle`` span."""
     from mlamg_torch.mg.cycle import _conv_factor
 
+    settings = dict(omega_jac=omega_jac, nu=nu, smoother=smoother, lmin_frac=lmin_frac,
+                    gamma=gamma)
     A = h.levels[0].A
     err = torch.zeros(max_iter, dtype=x0.dtype, device=x0.device)
+    graphed = b.device.type == "cuda"
+    key = (omega_jac, nu, smoother, lmin_frac, gamma, tuple(b.shape), b.dtype, b.device)
+    g = h.graphs.get(key) if graphed else None
+    if g is not None:
+        g.b.copy_(b)
+        g.x.copy_(x0)
     x = x0
     iters = 0
     with Profiler("solve"):
         while iters < max_iter:
-            x = uvcycle(h, b, x, omega_jac=omega_jac, nu=nu, smoother=smoother,
-                        lmin_frac=lmin_frac, gamma=gamma)
+            if g is None and (not graphed or iters == 0):
+                mode = "eager"
+                x = uvcycle(h, b, x, **settings)
+            else:
+                mode = "capture" if g is None else "replay"
+                with Profiler("cycle", graph=mode):
+                    if g is None:
+                        g = h.graphs[key] = CycleGraph(h, b, x, settings)
+                    x = g.replay()
+            GRAPHS["uvcycle." + mode] += 1
             with Profiler("residual_norm"):
                 e = torch.linalg.vector_norm(matmul.spmv_affine(A, x, c=b, alpha=-1.0))
                 err[iters] = e
@@ -321,6 +396,8 @@ def uvcycle_solve(h: UHierarchy, b: torch.Tensor, x0: torch.Tensor, *,
             iters += 1
             if done:
                 break
+    if g is not None:
+        x = x.clone()  # never the graph's own buffer
     return x, _conv_factor(err, iters), err, iters
 
 

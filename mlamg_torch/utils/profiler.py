@@ -30,7 +30,11 @@ span is still timed but not stored, and ``Profiler.dropped`` counts it.
 
 **Counters.**  ``LAUNCHES`` counts the launches of the hand-written CUDA
 kernels by name; the kernels' wrappers count into it whether recording is
-on or off.
+on or off; a CUDA graph's capture counts none, and each replay adds the
+launches of the kernels it holds.
+``GRAPHS`` counts the cycles of ``uvcycle_solve`` by how each ran:
+``uvcycle.eager``, ``uvcycle.capture`` (captured as a CUDA graph, then
+replayed once) or ``uvcycle.replay``; it too counts always.
 """
 
 from __future__ import annotations
@@ -42,6 +46,7 @@ import time
 import torch
 
 LAUNCHES: collections.Counter = collections.Counter()
+GRAPHS: collections.Counter = collections.Counter()
 
 # A span's range in a profiler session: a RecordFunction range, as
 # torch.profiler.record_function opens, through the entry torch's compiled
