@@ -4,12 +4,13 @@
     python3 benchmark/control.py --workload <cell> --seeds <n> [<n> ...]
 
 For each seed, one request of the cell's traffic (its first) is made as a
-run makes it.  The program solves it; the control puts the reference in
-the program's place in bfloat16, the precision below the configuration's
-float32: x_true rounded to bfloat16 as the answer, and the first coarse
-operator worked out by the reference in bfloat16.  Both go through the
-run's own comparison; one JSON line per seed and side.  Not part of a
-benchmark run.
+run makes it, where the mix draws dataset items on the item it draws.  The
+program solves it; the control puts the reference in the program's place
+in bfloat16, the precision below the configuration's float32: x_true
+rounded to bfloat16 as the answer, and the first coarse operator worked
+out by the reference in bfloat16.  Both go through the run's own
+comparison; one JSON line per seed and side.  Not part of a benchmark
+run.
 """
 
 import os
@@ -36,19 +37,21 @@ def readings(cell: str, seeds, device: str = "cuda", loaded: dict | None = None)
     h_fixed = system.build(system.operator(1.0)) if fixed else None
     out = []
     for seed in seeds:
-        client = core.Client(traffic, seed, system.n, dev)
-        scale, x_true = client.draw(core.WINDOW, 0)
-        b = system.rhs(x_true, scale)
-        h = h_fixed if fixed else system.build(system.operator(scale))
+        client = core.Client(traffic, seed, system, dev)
+        scale, x_true, item = client.draw(core.WINDOW, 0)
+        at = core.item_args(item)
+        b = system.rhs(x_true, scale, *at)
+        h = h_fixed if fixed else system.build(system.operator(scale, *at))
         tol = config["request"]["tol"] * float(torch.linalg.vector_norm(b))
         x, cycles, _ = system.solve(h, b, tol)
         state = system.coarse_state(h)
-        program = {"residual": system.residual(x, b, scale), "cycles": cycles,
+        program = {"residual": system.residual(x, b, scale, *at), "cycles": cycles,
                    **system.check_coarse(state, scale)}
         x_low = x_true.to(torch.bfloat16).float()
-        control = {"residual": system.residual(x_low, b, scale),
+        control = {"residual": system.residual(x_low, b, scale, *at),
                    **system.check_coarse(system.control_state(state, scale), scale)}
-        out.append({"seed": seed, "scale": scale, "program": program, "control": control})
+        out.append({"seed": seed, "scale": scale, "item": item, "program": program,
+                    "control": control})
     return out
 
 

@@ -15,6 +15,21 @@ normal float32, drawn on the device from the run's seed and the request's
 index.  The client is one, in a closed loop: it makes its next system
 (and, where the mix changes the operator, its operator) before the
 request's clock starts, and sends it when the last answer is back.
+
+A system drives the measured package through ``operator(scale)``,
+``rhs(x_true, scale)``, ``build(A)``, ``solve(h, b, tol)``,
+``coarse_state(h)``, ``check_coarse(state, scale)`` and ``residual(x, b,
+scale)``, with ``n`` the operator's rows.  A system may instead hold a
+dataset of operators: it declares ``items`` (their count) and
+``n_of(item)`` (their rows) in place of ``n``, and is called as
+``operator(scale, item)``, ``rhs(x_true, scale, item)`` and ``residual(x,
+b, scale, item)``; its ``coarse_state(h)`` carries the item.  Such a
+system runs under a mix with ``"items": "seeded_order"``: each request
+solves one item, in an order that is a permutation of the items drawn
+from the seed's own stream, anew for each pass over the dataset, so a
+window holds every item equally often to within one.  The item changes
+neither the request's scale nor its x_true's draw, only x_true's length.
+A system without ``items`` is called as above, with no item.
 """
 
 from __future__ import annotations
@@ -37,7 +52,7 @@ BENCH = ROOT / "benchmark"
 CACHE = BENCH / "_cache"
 FORBIDDEN = ("jax", "jaxlib", "flax", "mlamg_tpu")
 CHECK_SAMPLE = 12  # answers kept for the check, a uniform sample drawn from the seed
-WINDOW, WARMUP, TRACED, SAMPLE = 0, 1, 2, 3  # seed streams
+WINDOW, WARMUP, TRACED, SAMPLE, ITEMS = 0, 1, 2, 3, 4  # seed streams
 
 
 @dataclasses.dataclass
@@ -93,26 +108,57 @@ def load_cell(name: str) -> dict:
             "per_layer": per_layer}
 
 
-def _seed(seed: int, stream: int, index: int) -> int:
-    return int(np.random.SeedSequence([seed % 2**64, stream, index]).generate_state(1, np.uint64)[0] >> 1)
+def _seed(seed: int, *keys: int) -> int:
+    return int(np.random.SeedSequence([seed % 2**64, *keys]).generate_state(1, np.uint64)[0] >> 1)
+
+
+def item_order(seed: int, stream: int, rounds: int, items: int) -> np.ndarray:
+    """The items in the order of pass ``rounds`` over the dataset on one
+    request stream: a permutation drawn from the seed's item stream."""
+    return np.random.default_rng(_seed(seed, ITEMS, stream, rounds)).permutation(items)
+
+
+def item_args(item) -> tuple:
+    """The trailing arguments of a system's calls: the item, or none."""
+    return () if item is None else (item,)
+
+
+def rows(system, item) -> int:
+    return system.n if item is None else system.n_of(item)
 
 
 class Client:
-    """The closed-loop client: the request's operator scale and x_true."""
+    """The closed-loop client: the request's operator scale, x_true and,
+    where the mix draws items, the dataset item."""
 
-    def __init__(self, traffic: dict, seed: int, n: int, device):
+    def __init__(self, traffic: dict, seed: int, system, device):
         lo, hi = traffic["scale"]
         self.lo, self.hi = math.log2(lo), math.log2(hi)
-        self.seed, self.n, self.device = seed, n, device
+        self.seed, self.system, self.device = seed, system, device
+        drawn = traffic.get("items")
+        if drawn not in (None, "seeded_order"):
+            raise ValueError(f"unknown item order {drawn!r}")
+        self.items = getattr(system, "items", None)
+        if (drawn is None) != (self.items is None):
+            raise ValueError("a mix draws items exactly where the system holds a dataset")
+        if drawn and traffic["operator"] == "fixed":
+            raise ValueError("a mix that draws items builds each request's operator")
 
     def draw(self, stream: int, index: int):
+        """(scale, x_true, item) of request ``index`` on ``stream``; the
+        item is None where the mix draws none."""
         s = _seed(self.seed, stream, index)
         u = np.random.default_rng(s).random()
         scale = float(np.float32(2.0 ** (self.lo + (self.hi - self.lo) * u)))
+        item = None
+        if self.items is not None:
+            rounds, k = divmod(index, self.items)
+            item = int(item_order(self.seed, stream, rounds, self.items)[k])
         gen = torch.Generator(device=self.device)
         gen.manual_seed(s)
-        x_true = torch.randn(self.n, generator=gen, device=self.device, dtype=torch.float32)
-        return scale, x_true
+        x_true = torch.randn(rows(self.system, item), generator=gen, device=self.device,
+                             dtype=torch.float32)
+        return scale, x_true, item
 
 
 def _sync(device) -> None:
@@ -161,12 +207,12 @@ def run(cell_name: str, seed: int, seconds: float, trace: bool, t_start: float,
     r = Run(system, dev, name, setup_parts=parts)
     req = config["request"]
     fixed = traffic["operator"] == "fixed"
-    client = Client(traffic, seed, system.n, dev)
+    client = Client(traffic, seed, system, dev)
 
     def request(stream: int, index: int, h_fixed):
-        scale, x_true = client.draw(stream, index)
-        b = system.rhs(x_true, scale)
-        A = None if fixed else system.operator(scale)
+        scale, x_true, item = client.draw(stream, index)
+        b = system.rhs(x_true, scale, *item_args(item))
+        A = None if fixed else system.operator(scale, *item_args(item))
         tol = req["tol"] * float(torch.linalg.vector_norm(b))
         _sync(dev)
         t0 = time.perf_counter()
@@ -184,8 +230,8 @@ def run(cell_name: str, seed: int, seconds: float, trace: bool, t_start: float,
         t1 = time.perf_counter()
         rec = {"ms": (t1 - t0) * 1e3, "solve_ms": (t1 - t_built) * 1e3,
                "build_ms": None if fixed else (t_built - t0) * 1e3,
-               "cycles": int(cycles), "converged": bool(converged)}
-        return rec, h, (x, b, scale)
+               "cycles": int(cycles), "converged": bool(converged), "item": item}
+        return rec, h, (x, b, scale, item)
 
     h = None
     if fixed:
@@ -264,13 +310,15 @@ def run(cell_name: str, seed: int, seconds: float, trace: bool, t_start: float,
 
 def check(system, keeps: list, coarse_fixed, requests: list) -> dict:
     """The numbers compared: the worst float64 relative residual of the
-    kept answers, the requests that hit the cycle cap, and the worst of the
-    first coarse operators' checks (the set-up's, or each kept request's).
+    kept answers (each against its own item's operator), the requests that
+    hit the cycle cap, and the worst of the first coarse operators' checks
+    (the set-up's, or each kept request's, whose state carries its item).
     A number that is not finite reads as infinite."""
-    out = {"residual": _worst(system.residual(x, b, scale) for _, (x, b, scale), _ in keeps),
+    out = {"residual": _worst(system.residual(x, b, scale, *item_args(item))
+                              for _, (x, b, scale, item), _ in keeps),
            "unconverged": float(sum(not q["converged"] for q in requests))}
     states = [(coarse_fixed, 1.0)] if coarse_fixed is not None else [
-        (state, scale) for _, (_, _, scale), state in keeps]
+        (state, scale) for _, (_, _, scale, _), state in keeps]
     readings = [system.check_coarse(state, scale) for state, scale in states]
     for k in readings[0]:
         out[k] = _worst(r[k] for r in readings)

@@ -10,11 +10,15 @@ every per-layer reader listed before these, and caches what it read on the
 - pass A, the recorder on and no ``torch.profiler``: builds of the
   operator at scale 1, three where the mix builds a hierarchy per request
   and one where set-up builds the only one; each build's fenced
-  ``galerkin`` spans are summed.
+  ``galerkin`` spans are summed.  Where the system holds a dataset (see
+  ``core.py``), the three builds are of the first three items of the
+  order drawn from a fixed seed.  A build without a root ``build`` span
+  makes pass A read nothing.
 - pass B, on the card only, the recorder on under a device-only profiler
   pass (``trace.py``'s first): three solves of b = A x, x standard normal
   from fixed seeds, to the configurations' 1e-6 ||b||, on the run's
-  hierarchy, or on pass A's last build where the mix builds per request.
+  hierarchy, or on pass A's last build where the mix builds per request
+  (x sized to that build's item).
   The program's spans and the device's intervals share one clock, so each
   idle gap (window time no device interval covers) goes to the innermost
   program span at its middle, as ``trace.py`` puts gaps down to host
@@ -36,6 +40,7 @@ import time
 import numpy as np
 import torch
 
+from harness import core
 from harness import trace as tracing
 
 BUILDS_PER_REQUEST = 3  # pass A's builds where the mix builds per request
@@ -62,16 +67,19 @@ def _read(run) -> dict:
     Profiler.enabled = True
     try:
         per_request = run.hierarchy_s is None
-        builds, h = _pass_a(run, Profiler, BUILDS_PER_REQUEST if per_request else 1)
-        out = {"builds": builds}
-        galerkin = [b["galerkin_s"] for b in builds]
-        if per_request:
-            out["galerkin_ms.request"] = 1e3 * sum(galerkin) / len(galerkin)
-        else:
-            out["galerkin_s.setup"] = galerkin[0]
+        builds, h, item = _pass_a(run, Profiler, BUILDS_PER_REQUEST if per_request else 1)
+        out = {}
+        if builds:
+            galerkin = [b["galerkin_s"] for b in builds]
+            out["builds"] = builds
+            if per_request:
+                out["galerkin_ms.request"] = 1e3 * sum(galerkin) / len(galerkin)
+            else:
+                out["galerkin_s.setup"] = galerkin[0]
+        if not per_request:
             h = run.hierarchy
         if run.device.type == "cuda":
-            out.update(_pass_b(run, Profiler, profiler.LAUNCHES, h))
+            out.update(_pass_b(run, Profiler, profiler.LAUNCHES, h, item))
         return out
     finally:
         Profiler.enabled = was
@@ -86,35 +94,49 @@ def _sync(device) -> None:
 def _pass_a(run, Profiler, count: int):
     """Per build: its host time (ended by a synchronise), its fenced
     ``build`` span, the share of it its child spans cover, and its
-    ``galerkin`` spans' sum.  Returns them and the last build."""
-    A = run.system.operator(1.0)
-    builds, h = [], None
-    for _ in range(count):
+    ``galerkin`` spans' sum.  Returns them (none where a build has no root
+    ``build`` span), the last build and its item (None without items)."""
+    system = run.system
+    items = getattr(system, "items", None)
+    if items is None:
+        A, order = system.operator(1.0), [None] * count
+    else:
+        order = core.item_order(SEED, core.TRACED, 0, items)
+        order = [int(order[i % items]) for i in range(count)]
+    builds, h, readable = [], None, True
+    for item in order:
+        if item is not None:
+            A = system.operator(1.0, item)
         h = None  # the last build freed before the next
         Profiler.reset()
         gc.collect()
         _sync(run.device)
         t0 = time.perf_counter()
-        h = run.system.build(A)
+        h = system.build(A)
         _sync(run.device)
         host_s = time.perf_counter() - t0
         spans = Profiler.spans()
-        root = next(s for s in spans if s.name == "build" and s.parent is None)
+        root = next((s for s in spans if s.name == "build" and s.parent is None), None)
+        if root is None:
+            readable = False
+            continue
         children = sum(s.duration_s for s in spans if s.parent is root)
         builds.append({"host_s": host_s, "build_s": root.duration_s,
                        "covered": children / root.duration_s,
                        "galerkin_s": sum(s.duration_s for s in spans if s.name == "galerkin")})
-    return builds, h
+    return builds if readable else [], h, order[-1]
 
 
-def _pass_b(run, Profiler, launches, h) -> dict:
-    """Launches and idle gaps per cycle from ``SOLVES`` traced solves."""
+def _pass_b(run, Profiler, launches, h, item) -> dict:
+    """Launches and idle gaps per cycle from ``SOLVES`` traced solves on
+    ``h``, the hierarchy of ``item`` (None without items)."""
     system, dev = run.system, run.device
     rhs = []
     for i in range(SOLVES):
         gen = torch.Generator(device=dev)
         gen.manual_seed(SEED + i)
-        b = system.rhs(torch.randn(system.n, generator=gen, device=dev), 1.0)
+        x = torch.randn(core.rows(system, item), generator=gen, device=dev)
+        b = system.rhs(x, 1.0, *core.item_args(item))
         rhs.append((b, TOL * float(torch.linalg.vector_norm(b))))
     ends = []
     counted = dict(launches)
