@@ -27,8 +27,8 @@ from mlamg_torch.device import resolve_device
 from mlamg_torch.graph.strength import STRENGTH_MEASURES
 from mlamg_torch.mg.interp import sa_interpolation_dense
 from mlamg_torch.train import (
-    GridBundle, SolveOptions, bundle_conv, lloyd_aggregation_of, lloyd_reference_conv,
-    random_reference_conv,
+    GridBundle, SolveOptions, bundle_conv, learned_conv, lloyd_aggregation_of,
+    lloyd_reference_conv, random_reference_conv,
 )
 from mlamg_torch.utils.checkpoint import load_checkpoint
 
@@ -57,9 +57,10 @@ def evaluate(grids, net=None, *, alpha: float = 0.1, strength: str = "olson",
 
     ``lloyd``: Lloyd on ``strength`` from the seeds of PRNGKey(0);
     ``random``: Bellman-Ford from the centers of PRNGKey(42); ``ml``: the
-    FullAggNet ``net``.  With ``ablations``, ``ml_agg_only`` (learned
-    aggregates, Jacobi-SA) and ``ml_int_only`` (Lloyd aggregates, learned
-    interpolation).
+    FullAggNet ``net``'s two-level hierarchy, built by
+    :func:`~mlamg_torch.mg.learned.build_learned_twolevel`.  With
+    ``ablations``, ``ml_agg_only`` (learned aggregates, Jacobi-SA) and
+    ``ml_int_only`` (Lloyd aggregates, learned interpolation).
     """
     opts = opts or SolveOptions(smoother="multicolor_gs")
     dev = resolve_device(device)
@@ -70,7 +71,7 @@ def evaluate(grids, net=None, *, alpha: float = 0.1, strength: str = "olson",
         "random": lambda b: random_reference_conv(b, opts=opts, strength_kind=strength),
     }
     if net is not None:
-        runs["ml"] = lambda b: bundle_conv(b, net(b.A, b.k)[1], opts)
+        runs["ml"] = lambda b: learned_conv(net, b, opts)
         if ablations:
             runs["ml_agg_only"] = lambda b: bundle_conv(
                 b, sa_interpolation_dense(b.A, net.agg_only(b.A, b.k), b.k), opts)

@@ -6,7 +6,9 @@ the assignment matrices :func:`agg_matrix_dense` and :func:`agg_matrix_csr`.
 Each sweep relaxes every edge at once and runs until no distance changes
 (or ``max_iter``); ties go to the smallest propagating center id.  Every
 reduction is a min, which is order-free, so the result equals JAX's bit
-for bit.
+for bit.  The host waits for the device (``SYNCS``, ``utils/profiler.py``)
+at each sweep's test for change (``bellman_ford.sweep``) and at the pull
+form's degree check (``bellman_ford.width``).
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import torch
 
 from mlamg_torch.ops.segment import segment_min
 from mlamg_torch.ops.sparse import COO, CSR
+from mlamg_torch.utils.profiler import SYNCS
 
 
 def bellman_ford(C, centers: torch.Tensor, max_iter: int | None = None):
@@ -35,7 +38,7 @@ def bellman_ford(C, centers: torch.Tensor, max_iter: int | None = None):
     centers = centers.to(device=C.device, dtype=torch.int64)
 
     dist = torch.full((n,), float("inf"), dtype=C.dtype, device=C.device)
-    dist[centers] = 0.0
+    dist.index_fill_(0, centers, 0.0)
     near = torch.full((n,), n, dtype=torch.int64, device=C.device)
     near[centers] = centers
     sentinel = torch.full_like(col, n)
@@ -50,6 +53,7 @@ def bellman_ford(C, centers: torch.Tensor, max_iter: int | None = None):
         near_cand = segment_min(torch.where(win, near[rsafe], sentinel), col, n)
         near = torch.where(improved, near_cand, near)
         dist = new_dist
+        SYNCS["bellman_ford.sweep"] += 1
         if not bool(improved.any()):
             break
     return dist, near
@@ -80,11 +84,14 @@ def bellman_ford_pull(C, centers: torch.Tensor, *, width: int, max_iter: int | N
     if max_iter is None:
         max_iter = n
     live = C.row < n
-    deg = torch.bincount(C.row[live], minlength=1)
-    if int(deg.max()) > width:
+    deg = torch.zeros(n + 1, dtype=torch.int64, device=C.device)
+    deg.index_add_(0, C.row.clamp(max=n), torch.ones_like(C.row))  # padding to slot n
+    SYNCS["bellman_ford.width"] += 1
+    longest = int(deg[:n].max())
+    if longest > width:
         raise ValueError(
             f"bellman_ford_pull: width={width} is smaller than the max row "
-            f"degree {int(deg.max())}; recompute width with dataset_bf_width"
+            f"degree {longest}; recompute width with dataset_bf_width"
         )
     data_t = C.data[_transpose_data_order(C)]
     rsafe = C.row.clamp(max=n - 1)
@@ -100,7 +107,7 @@ def bellman_ford_pull(C, centers: torch.Tensor, *, width: int, max_iter: int | N
 
     centers = centers.to(device=C.device, dtype=torch.int64)
     dist = torch.full((n + 1,), float("inf"), dtype=C.dtype, device=C.device)
-    dist[centers] = 0.0
+    dist.index_fill_(0, centers, 0.0)
     near = torch.full((n + 1,), n, dtype=torch.int64, device=C.device)
     near[centers] = centers
     for _ in range(max_iter):
@@ -112,6 +119,7 @@ def bellman_ford_pull(C, centers: torch.Tensor, *, width: int, max_iter: int | N
                                 torch.full_like(colE, n)).min(1).values
         near[:n] = torch.where(improved, near_cand, near[:n])
         dist[:n] = new_dist
+        SYNCS["bellman_ford.sweep"] += 1
         if not bool(improved.any()):
             break
     return dist[:n], near[:n]

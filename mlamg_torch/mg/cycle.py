@@ -32,7 +32,7 @@ from mlamg_torch.ops import matmul
 from mlamg_torch.ops.dia import DIA, dia_jacobi_operator
 from mlamg_torch.ops.sparse import CSR, ELL
 from mlamg_torch.utils import prng
-from mlamg_torch.utils.profiler import Profiler
+from mlamg_torch.utils.profiler import SYNCS, Profiler
 
 
 def _is_factored(P) -> bool:
@@ -83,14 +83,23 @@ def twolevel_solve(
     smoother_args: dict | None = None,
     coarse: CoarseSolver | None = None,
     fused_jacobi: bool | None = None,
+    Dinv: torch.Tensor | None = None,
 ):
     """Two-level AMG solve; returns (x, conv_factor, err_history, iters).
 
     ``err_history`` is a (max_iter,) buffer, zero past ``iters``.
+    ``coarse`` (the factored P^T A P) and ``Dinv`` (A's inverse diagonal)
+    are formed here unless a build gives them.
     ``fused_jacobi`` rewrites each Jacobi sweep as the affine map
     x' = (I - w D^-1 A) x + w D^-1 b, one ``dia_spmv`` pass; ``None`` means
     on exactly for a DIA operator on CUDA (the JAX package's "blocked DIA
     on a TPU").  Mathematically identical; rounding differs slightly.
+
+    Spans (``utils/profiler.py``, while recording): ``solve`` holding, per
+    iteration, ``cycle`` with one ``level`` (``level=0``) of
+    ``pre_smooth``, ``restrict``, ``coarse_solve``, ``interp`` and
+    ``post_smooth``, then ``residual_norm`` (the stopping test, a host
+    read counted in ``SYNCS["twolevel.residual"]``).
     """
     if res_tol is None and error_tol is None:
         raise RuntimeError("One of res_tol or error_tol must be set!")
@@ -100,7 +109,8 @@ def twolevel_solve(
     if smoother not in ("jacobi", "chebyshev", "multicolor_gs"):
         raise ValueError(f"unknown smoother {smoother}")
 
-    Dinv = _dinv(A)
+    if Dinv is None:
+        Dinv = _dinv(A)
     if coarse is None:
         coarse = CoarseSolver.factor(coarse_operator(A, P), singular=singular)
     if smoother == "chebyshev" and "lmax" not in smoother_args:
@@ -125,26 +135,37 @@ def twolevel_solve(
             return jacobi(A, b, x, Dinv, omega=jacobi_weight, nu=nu)
         if smoother == "multicolor_gs":
             return multicolor_gauss_seidel(A, b, x, smoother_args["colors"],
-                                           smoother_args["num_colors"], nu=nu)
+                                           smoother_args["num_colors"], nu=nu, Dinv=Dinv)
         return chebyshev(A, b, x, smoother_args["lmax"], degree=nu + 1, Dinv=Dinv)
 
     err = torch.zeros(max_iter, dtype=x0.dtype, device=x0.device)
     x = x0
     iters = 0
-    while iters < max_iter:
-        x = smooth(x, pre_smoothing_steps)
-        r = matmul.spmv_affine(A, x, c=b, alpha=-1.0)  # b - A x, fused
-        x = x + _interp(P, coarse.solve(_restrict(P, r)))
-        x = smooth(x, post_smoothing_steps)
-        if singular:
-            x = x - x.mean()
-        e = torch.linalg.vector_norm(
-            matmul.spmv_affine(A, x, c=b, alpha=-1.0) if use_res else x
-        )
-        err[iters] = e
-        iters += 1
-        if float(e) <= tol:
-            break
+    with Profiler("solve"):
+        while iters < max_iter:
+            with Profiler("cycle"), Profiler("level", level=0):
+                with Profiler("pre_smooth"):
+                    x = smooth(x, pre_smoothing_steps)
+                with Profiler("restrict"):
+                    r_H = _restrict(P, matmul.spmv_affine(A, x, c=b, alpha=-1.0))  # b - A x
+                with Profiler("coarse_solve"):
+                    e_H = coarse.solve(r_H)
+                with Profiler("interp"):
+                    x = x + _interp(P, e_H)
+                with Profiler("post_smooth"):
+                    x = smooth(x, post_smoothing_steps)
+                    if singular:
+                        x = x - x.mean()
+            with Profiler("residual_norm"):
+                e = torch.linalg.vector_norm(
+                    matmul.spmv_affine(A, x, c=b, alpha=-1.0) if use_res else x
+                )
+                err[iters] = e
+                SYNCS["twolevel.residual"] += 1
+                done = float(e) <= tol
+            iters += 1
+            if done:
+                break
     return x, _conv_factor(err, iters), err, iters
 
 
@@ -160,11 +181,13 @@ def _conv_factor(err: torch.Tensor, iters: int) -> float:
     top = err.shape[0] - 1
     last = err[min(max(iters - 1, 0), top)]
     base = err[min(max(iters - err_n, 0), top)]
+    SYNCS["conv_factor"] += 2
     last_f, base_f = float(last), float(base)
     if not (math.isfinite(last_f) and math.isfinite(base_f)):
         return 1.0
     if iters < 6 or base_f <= 0:
         return 0.0
+    SYNCS["conv_factor"] += 1
     conv = float(last / base) ** (1.0 / max(err_n - 1, 1))
     return conv if math.isfinite(conv) else 1.0
 

@@ -92,11 +92,13 @@ def greedy_coloring_py(A_scipy) -> np.ndarray:
     return colors
 
 
-def multicolor_gauss_seidel(A, b, x, colors: torch.Tensor, num_colors: int, nu: int = 1):
+def multicolor_gauss_seidel(A, b, x, colors: torch.Tensor, num_colors: int, nu: int = 1,
+                            Dinv=None):
     """Gauss-Seidel under a graph colouring: colours in sequence, each
     colour's rows at once (the full residual recomputed per colour).  Equal
     to a GS sweep in the colouring's order."""
-    Dinv = _dinv(A)
+    if Dinv is None:
+        Dinv = _dinv(A)
     for _ in range(nu):
         for c in range(num_colors):
             upd = x + Dinv * (b - spmv(A, x))

@@ -11,10 +11,15 @@
 ``pad = (n_real, k_real)`` runs a grid padded to a shape bucket (see
 :func:`pad_aware_scores`).  ``AggOnlyNet`` keeps the learned
 aggregation and takes the classical Jacobi-smoothed prolongator of it.
+
+Spans (``utils/profiler.py``, fenced, while recording): ``graph``, one
+``aggnet`` (``layer=i``) per AggNet layer, ``topk`` (the centers),
+``cnet``, ``bellman_ford``, ``pnet`` and ``remap`` (P = P-hat Agg).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
@@ -28,6 +33,7 @@ from mlamg_torch.models.graphdata import (
     GraphData, gather_dst, gather_src, graph_from_matrix, graph_from_matrix_basic,
 )
 from mlamg_torch.ops.sparse import CSR
+from mlamg_torch.utils.profiler import Profiler
 
 
 class MPNN(nn.Module):
@@ -114,16 +120,38 @@ class AggNet(nn.Module):
         for i in range(iterations):
             setattr(self, f"layer_{i}", AggBinarizationLayer(dim, num_conv))
 
+    def layers(self, g: GraphData, k: int, pad=None) -> list:
+        """[(0/1 mask, scores)] of every layer, in order."""
+        x, out = g.x, []
+        for i in range(self.iterations):
+            with Profiler("aggnet", fence=True, layer=i):
+                x, scores = getattr(self, f"layer_{i}")(g, x, k, pad)
+            out.append((x[:, 0], scores))
+        return out
+
     def forward(self, g: GraphData, k: int, pad=None, *, return_intermediate: bool = False):
         """(mask, scores) of the last layer; with ``return_intermediate``
         the list of every layer's 0/1 mask."""
-        x, scores, masks = g.x, None, []
-        for i in range(self.iterations):
-            x, scores = getattr(self, f"layer_{i}")(g, x, k, pad)
-            masks.append(x[:, 0])
+        out = self.layers(g, k, pad)
         if return_intermediate:
-            return masks
-        return x[:, 0], scores
+            return [mask for mask, _ in out]
+        return out[-1]
+
+
+@dataclasses.dataclass(frozen=True)
+class LearnedParts:
+    """What :meth:`FullAggNet.parts` computes: ``masks`` and ``scores``
+    hold each AggNet layer's 0/1 top-k mask and scores, ``C`` CNet's
+    Bellman-Ford weights on A's pattern, ``p_hat`` PNet's values of P-hat
+    on A's pattern, and ``P`` = P-hat Agg."""
+
+    agg_id: torch.Tensor
+    P: CSR
+    C: CSR
+    centers: torch.Tensor
+    masks: tuple
+    scores: tuple
+    p_hat: torch.Tensor
 
 
 class FullAggNet(nn.Module):
@@ -154,14 +182,20 @@ class FullAggNet(nn.Module):
                                        rel_strength=self.rel_strength)
 
     def _aggregate(self, A: CSR, k: int, pad=None):
-        """(agg_id, C, centers, node_mask) of the learned aggregation."""
-        g = self.basic_graph(A, None if pad is None else pad[0])
-        node_mask, scores = self.AggNetM(g, k, pad)
-        centers = topk_indices(scores, k)
-        _, bf_edges = self.CNet(g)
-        C = A.with_data(torch.where(A.mask, bf_edges[:, 0], torch.zeros_like(A.data)))
-        _, nearest = self._bf(C, centers)
-        return nearest_center_to_agg(centers, nearest), C, centers, node_mask
+        """(agg_id, C, centers, AggNet's [(mask, scores)] per layer) of the
+        learned aggregation."""
+        with Profiler("graph", fence=True):
+            g = self.basic_graph(A, None if pad is None else pad[0])
+        layers = self.AggNetM.layers(g, k, pad)
+        with Profiler("topk", fence=True):
+            centers = topk_indices(layers[-1][1], k)
+        with Profiler("cnet", fence=True):
+            _, bf_edges = self.CNet(g)
+            C = A.with_data(torch.where(A.mask, bf_edges[:, 0], torch.zeros_like(A.data)))
+        with Profiler("bellman_ford", fence=True):
+            _, nearest = self._bf(C, centers)
+            agg_id = nearest_center_to_agg(centers, nearest)
+        return agg_id, C, centers, layers
 
     def agg_only(self, A: CSR, k: int) -> torch.Tensor:
         """The learned aggregation alone: agg_id."""
@@ -172,6 +206,19 @@ class FullAggNet(nn.Module):
         _, p_edges = self.PNet(graph_from_matrix(A, agg_id))
         return remap_columns(A, p_edges[:, 0], agg_id, k)  # P = P_hat Agg
 
+    def parts(self, A: CSR, k: int, pad=None) -> LearnedParts:
+        """The whole forward pass and what it computes on the way (see
+        :class:`LearnedParts`); ``pad`` as in :meth:`forward`."""
+        n_real = None if pad is None else pad[0]
+        agg_id, C, centers, layers = self._aggregate(A, k, pad)
+        with Profiler("pnet", fence=True):
+            g2 = graph_from_matrix(A, agg_id, n_real=n_real, ell_width=self.bf_width)
+            p_hat = self.PNet(g2)[1][:, 0]
+        with Profiler("remap", fence=True):
+            P = remap_columns(A, p_hat, agg_id, k, n_real=n_real)
+        masks, scores = zip(*layers)
+        return LearnedParts(agg_id, P, C, centers, masks, scores, p_hat)
+
     def forward(self, A: CSR, k: int, pad=None):
         """Returns (agg_id, P (CSR n x k), C, centers, node_mask).
 
@@ -180,12 +227,8 @@ class FullAggNet(nn.Module):
         on real nodes (:func:`pad_aware_scores`), and the padding rows of P
         hold 1.0, so the coarse operator stays block diagonal and
         nonsingular."""
-        n_real = None if pad is None else pad[0]
-        agg_id, C, centers, node_mask = self._aggregate(A, k, pad)
-        g2 = graph_from_matrix(A, agg_id, n_real=n_real, ell_width=self.bf_width)
-        _, p_edges = self.PNet(g2)
-        P = remap_columns(A, p_edges[:, 0], agg_id, k, n_real=n_real)
-        return agg_id, P, C, centers, node_mask
+        p = self.parts(A, k, pad)
+        return p.agg_id, p.P, p.C, p.centers, p.masks[-1]
 
 
 class AggOnlyNet(nn.Module):

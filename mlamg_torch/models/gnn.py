@@ -82,7 +82,7 @@ class InstanceNorm(nn.Module):
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
         if mask is None:
-            inv_n = torch.tensor(1.0 / x.shape[0], dtype=x.dtype, device=x.device)
+            inv_n = torch.full((), 1.0 / x.shape[0], dtype=x.dtype, device=x.device)
             d = x - tree_sum(x) * inv_n
             var = tree_sum(d * d) * inv_n
             return d * (1.0 / torch.sqrt(var + self.eps))
@@ -105,7 +105,7 @@ class LayerNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         d = x.shape[-1]
-        inv_d = torch.tensor(1.0 / d, dtype=x.dtype, device=x.device)
+        inv_d = torch.full((), 1.0 / d, dtype=x.dtype, device=x.device)
         mu = ordered_sum(x, -1)[..., None] * inv_d
         mu2 = ordered_sum(x * x, -1)[..., None] * inv_d
         var = (mu2 - mu * mu).clamp(min=0.0)

@@ -23,6 +23,7 @@ import torch
 
 from mlamg_torch.device import resolve_device
 from mlamg_torch.ops.segment import ordered_sum
+from mlamg_torch.utils.profiler import SYNCS
 
 
 def round_up(x: int, m: int) -> int:
@@ -40,8 +41,13 @@ def segment_slots(ids: torch.Tensor, num_segments: int,
     key = ids.clamp(max=num_segments)
     order = torch.sort(key, stable=True).indices
     skey = key[order]
-    counts = torch.bincount(key, minlength=num_segments + 1)
-    longest = int(counts[:num_segments].max()) if num_segments else 0
+    # counted by index_add_, which (unlike bincount) reads no size back
+    counts = torch.zeros(num_segments + 1, dtype=torch.int64, device=ids.device)
+    counts.index_add_(0, key, torch.ones_like(key))
+    longest = 0
+    if num_segments:
+        SYNCS["segment_slots"] += 1
+        longest = int(counts[:num_segments].max())
     if width is None:
         width = longest
     elif longest > width:

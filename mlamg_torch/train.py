@@ -99,8 +99,9 @@ class GridBundle:
 
 
 def measured_conv(A: CSR, P, x0: torch.Tensor, opts: SolveOptions, colors=None,
-                  num_colors: int = 0) -> float:
-    """Convergence factor of the two-level cycle with b = 0 (NaN -> 1.0)."""
+                  num_colors: int = 0, coarse=None, Dinv=None) -> float:
+    """Convergence factor of the two-level cycle with b = 0 (NaN -> 1.0);
+    ``coarse`` and ``Dinv`` as a build made them, else formed here."""
     smoother_args = None
     if opts.smoother == "multicolor_gs":
         if colors is None:
@@ -118,6 +119,8 @@ def measured_conv(A: CSR, P, x0: torch.Tensor, opts: SolveOptions, colors=None,
         singular=opts.singular,
         smoother=opts.smoother,
         smoother_args=smoother_args,
+        coarse=coarse,
+        Dinv=Dinv,
     )
     return 1.0 if math.isnan(conv) else conv
 
@@ -125,6 +128,18 @@ def measured_conv(A: CSR, P, x0: torch.Tensor, opts: SolveOptions, colors=None,
 def bundle_conv(b: GridBundle, P, opts: SolveOptions) -> float:
     """:func:`measured_conv` of ``P`` on a bundle's system."""
     return measured_conv(b.A, P, b.x0, opts, colors=b.colors, num_colors=b.num_colors)
+
+
+def learned_conv(net, b: GridBundle, opts: SolveOptions) -> float:
+    """:func:`measured_conv` of a FullAggNet on a bundle's system, through
+    :func:`~mlamg_torch.mg.learned.build_learned_twolevel` with the
+    bundle's colouring."""
+    from mlamg_torch.mg.learned import build_learned_twolevel
+
+    h = build_learned_twolevel(net, b.A, b.k, colors=b.colors, num_colors=b.num_colors,
+                               singular=opts.singular)
+    return measured_conv(b.A, h.P, b.x0, opts, colors=b.colors, num_colors=b.num_colors,
+                         coarse=h.coarse, Dinv=h.Dinv)
 
 
 def _first_k(b: GridBundle, key) -> torch.Tensor:
@@ -167,11 +182,7 @@ def random_reference_conv(b: GridBundle, key=None, opts: SolveOptions | None = N
 def evaluate_model_on_bundles(net, bundles, opts: SolveOptions | None = None) -> np.ndarray:
     """Per-grid conv factors of a FullAggNet's prolongator."""
     opts = opts or SolveOptions()
-    out = []
-    for b in bundles:
-        _, P, _, _, _ = net(b.A, b.k)
-        out.append(bundle_conv(b, P, opts))
-    return np.asarray(out)
+    return np.asarray([learned_conv(net, b, opts) for b in bundles])
 
 
 @dataclasses.dataclass

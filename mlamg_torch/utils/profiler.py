@@ -35,6 +35,14 @@ launches of the kernels it holds.
 ``GRAPHS`` counts the cycles of ``uvcycle_solve`` by how each ran:
 ``uvcycle.eager``, ``uvcycle.capture`` (captured as a CUDA graph, then
 replayed once) or ``uvcycle.replay``; it too counts always.
+``SYNCS`` counts where the learned two-level path makes the host wait for
+the device (a value read back or a host array copied in), by site:
+``coloring`` (the pattern read, the colours copied over),
+``segment_slots`` (a slot table's longest segment), ``bellman_ford.width``
+and ``bellman_ford.sweep`` (the pull form's degree check, each sweep's
+test for change), ``twolevel.residual`` (each cycle's stopping test) and
+``conv_factor`` (the convergence factor's norms); it too counts always,
+on the CPU as on the card.
 """
 
 from __future__ import annotations
@@ -47,6 +55,7 @@ import torch
 
 LAUNCHES: collections.Counter = collections.Counter()
 GRAPHS: collections.Counter = collections.Counter()
+SYNCS: collections.Counter = collections.Counter()
 
 # A span's range in a profiler session: a RecordFunction range, as
 # torch.profiler.record_function opens, through the entry torch's compiled
