@@ -18,6 +18,12 @@ Phases (each prints one JSON line; any failure exits non-zero):
    back between launches, each launch between its own events, median of
    20) and warm (100 back to back), queued behind a spin kernel so that
    host time does not count; and the plain versions over 50 warmed calls.
+   Then ``ordered_sum`` (``ordered_sum_phase``): the kernel against the
+   plain chain of adds bit for bit, timed L2-cold and warm beside its byte
+   bound, the plain chain's time and both wrappers' host time and device
+   operations a call (the kernel must be one), at the learned cell's
+   shapes and at a tree_sum level of a 600k and a 16.8M vector; its
+   launches in a learned build and cycle on test grid 0.
 3. path: the unstructured multilevel SA-AMG solve, as bench.py drives the
    JAX package: ``build_unstructured_hierarchy(alpha=0.2, max_levels=5,
    min_coarse=1200, lloyd_maxiter=5, fmt="well")`` on the 600k-dof hull
@@ -82,8 +88,9 @@ Phases (each prints one JSON line; any failure exits non-zero):
    (within 0.01), ML below Lloyd on 2d_iso, a second 2d_iso run on the card
    equal per grid, and the same evaluation on the CPU within 0.02 per grid
    (and counts the grids whose FullAggNet centers or agg_id differ between
-   card and CPU).  Neither CUDA kernel is on this path: it checks that
-   both launch 0 times.  Prints seconds per method, ms per two-level
+   card and CPU).  Neither spmv kernel is on this path: it checks that
+   ``well_spmv`` and ``dia_spmv`` launch 0 times (``ordered_sum``'s
+   launches are counted).  Prints seconds per method, ms per two-level
    iteration (CUDA events) and per FullAggNet forward on the largest
    2d_iso grid, and a torch.profiler trace of one ML conv; the phase must
    finish within 90 s.
@@ -111,7 +118,7 @@ Phases (each prints one JSON line; any failure exits non-zero):
    (mse_c printed; see ``F64_PRETRAIN_RTOL``); saves the
    trained weights and evaluates them
    through ``cli.evaluate_dataset.load_model`` on a test grid (the same
-   conv as the trained module).  Neither CUDA kernel is on this path (0
+   conv as the trained module).  Neither spmv kernel is on this path (0
    launches of each).  Prints s per step and per epoch (card and CPU), the
    CUDA-event time of one loss and backward on the largest training grid,
    whether two card runs of it give the same gradient bits, and a
@@ -136,7 +143,7 @@ Phases (each prints one JSON line; any failure exits non-zero):
    (elitism); the final checkpoint's population, fitness, key and sigma
    equal to the GA's; its best_params through
    ``cli.evaluate_dataset.load_model`` giving, on a test grid, the conv
-   the GA measured; 0 launches of either kernel.  Prints s per
+   the GA measured; 0 launches of either spmv kernel.  Prints s per
    individual (40 grids) and per generation, the best individual's test
    loss, the ``Profiler`` tree, the CUDA-event time of one individual's
    fitness on the larger bucket and a torch.profiler trace of it; the
@@ -169,8 +176,8 @@ Phases (each prints one JSON line; any failure exits non-zero):
    counts are set by rounding).  Prints setup seconds with the dense LUs
    apart, iterations and seconds per step, ms per FGMRES iteration (CUDA
    events) and a torch.profiler trace of one cavity-128 pcdr FGMRES
-   iteration; 0 launches of either kernel; the phase must finish within
-   150 s.
+   iteration; 0 launches of either spmv kernel; the phase must finish
+   within 150 s.
 
 13. tools, in a fresh process: the remaining trainers and tools through
    their CLI functions on the card.  ``train_cf_interp.main`` with
@@ -204,8 +211,8 @@ Phases (each prints one JSON line; any failure exits non-zero):
    machine's scipy may triangulate otherwise; the CPU tests hold the
    bytes).  Prints seconds per epoch, per sample build and per
    generation, the CUDA-event time of one ``train_cf_interp`` Adam step
-   and a torch.profiler trace of it; 0 launches of either kernel; the
-   phase must finish within 150 s.
+   and a torch.profiler trace of it; 0 launches of either spmv kernel;
+   the phase must finish within 150 s.
 
 14. dist, in a fresh process started before the 600k hull is meshed (the
    card is idle while the host meshes; the main process waits for it
@@ -234,7 +241,7 @@ Phases (each prints one JSON line; any failure exits non-zero):
    ``data_out/2d_iso/test/isotropic_0000.grid``, card against CPU in
    float64: the error within 1e-6 of its largest entry, the masks equal
    (float32 printed).  A torch.profiler trace of one S = 8 cycle; 0
-   launches of either kernel; the phase must finish within 150 s.
+   launches of either spmv kernel; the phase must finish within 150 s.
 
 15. examples, in a fresh process of the dist phase's pool, started when
    the dist phase ends (so still while the host meshes the 600k hull, and
@@ -250,7 +257,7 @@ Phases (each prints one JSON line; any failure exits non-zero):
    ``reinforce_centers``; ``tests/test_torch_examples.py`` says why) are
    held card against CPU: counts equal, printed decimals within one unit
    of their last digit, the rest of each line equal.  0 launches of either
-   kernel; the phase must finish within 150 s.
+   spmv kernel; the phase must finish within 150 s.
 
 16. bench, in this process after small_structured (the hull and the 4096^2
    Poisson are still held, so neither is built again): ``bench_torch``'s
@@ -273,11 +280,13 @@ hierarchy's solve; ``launches_bench``: on bench_torch's cells;
 ``launches_eval``, ``launches_train``, ``launches_ga``,
 ``launches_ns``, ``launches_tools``, ``launches_dist``,
 ``launches_examples``: on the evaluation's, training's, the GA's, the
-Navier-Stokes, the tools', the distributed path and the examples, 0), its largest error
-against the plain version over every check, its time, the plain version's
-and the library call's time, and its bound (``well_spmv``: from the stored
-nonzeros, ``bound_ell_ms`` counts the ELL slots and ``bound_sliced_ms`` the
-pack's; ``dia_spmv``: (D + 2) * 4 B per row); the nvidia-smi line;
+Navier-Stokes, the tools', the distributed path and the examples: 0
+for the two spmv kernels), its largest error against the plain version
+over every check, its time, the plain version's and the library call's
+time, and its bound (``well_spmv``: from the stored nonzeros,
+``bound_ell_ms`` counts the ELL slots and ``bound_sliced_ms`` the pack's;
+``dia_spmv``: (D + 2) * 4 B per row; ``ordered_sum``: each value read and
+each sum written once, and its phase line's times); the nvidia-smi line;
 and last ``{"ok": true, "device": {...}}``.
 """
 
@@ -298,6 +307,8 @@ from functools import partial
 import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published peak (NVIDIA data sheet)
+KERNELS = ("well_spmv", "dia_spmv", "ordered_sum")
+SPMV_KERNELS = ("well_spmv", "dia_spmv")  # off the learned, training and deployment paths
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 N_DOFS = 600_000  # interior dofs of the random-hull FEM matrix (bench.py hull600k)
 SEED = 7
@@ -1231,6 +1242,122 @@ def check_dia_kernel(A, rng, label: str) -> tuple[float, float]:
     return abs_err, rel_err
 
 
+def host_us(fn, calls: int) -> float:
+    """Host time of one ``fn()`` in us: ``calls`` back to back, timed
+    before the synchronise that ends them."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return seconds / calls * 1e6
+
+
+def ordered_sum_phase(flush) -> dict:
+    """Hold the ordered-sum kernel against the plain chain bit for bit and
+    time it where the learned cell calls it (a Dense of (250, 8, 8) over
+    dim 1; the CSR spmv slot sum of the largest 2d_iso test grid, 1,628
+    entries, width 10; a restriction's slot sum, width 36) and at one
+    tree_sum level of a 600k and a 16.8M vector: L2-cold and warm, the
+    plain chain's cold time, and both versions' host time and device
+    operations a call (a device-only profiler pass); then its launches in
+    a learned build and cycle on test grid 0."""
+    import torch
+    from mlamg_torch.cli.evaluate_dataset import load_model
+    from mlamg_torch.data.grid import Grid
+    from mlamg_torch.mg.learned import build_learned_twolevel, learned_solve
+    from mlamg_torch.ops.segment import (
+        ordered_sum, ordered_sum_reference, slot_sum, slot_sum_reference,
+    )
+    from mlamg_torch.ops.sparse import CSR, segment_slots
+    from mlamg_torch.utils.profiler import LAUNCHES
+
+    grids = Grid.load_dir("data_out/2d_iso/test")
+    A = CSR.from_scipy(max(grids, key=lambda g: g.A.shape[0]).A, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def randn(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen)
+
+    spmv_vals, restrict_vals = randn(A.nnz_pad), randn(900)
+    restrict_slots = segment_slots(torch.arange(900, device="cuda") % 25, 25)
+    dense, tree600k, tree16m = randn(A.shape[0], 8, 8), randn(600_000), randn(GRID * GRID)
+    # name -> (kernel call, plain call, least bytes)
+    cases = {
+        "dense_250x8x8": (lambda: ordered_sum(dense, 1),
+                          lambda: ordered_sum_reference(dense, 1),
+                          dense.numel() * 4 + dense.numel() // 8 * 4),
+        "spmv_slots_w10": (lambda: slot_sum(spmv_vals, A.row_slots),
+                           lambda: slot_sum_reference(spmv_vals, A.row_slots),
+                           A.nnz * 4 + A.row_slots.numel() * 8 + A.shape[0] * 4),
+        "restrict_slots_w36": (lambda: slot_sum(restrict_vals, restrict_slots),
+                               lambda: slot_sum_reference(restrict_vals, restrict_slots),
+                               900 * 4 + 900 * 8 + 25 * 4),
+        "tree_level_600k": (lambda: ordered_sum(tree600k.view(-1, 32), 1),
+                            lambda: ordered_sum_reference(tree600k.view(-1, 32), 1),
+                            600_000 * 4 + 600_000 // 32 * 4),
+        "tree_level_16.8M": (lambda: ordered_sum(tree16m.view(-1, 32), 1),
+                             lambda: ordered_sum_reference(tree16m.view(-1, 32), 1),
+                             GRID * GRID * 4 + GRID * GRID // 32 * 4),
+    }
+    check(A.row_slots.shape[1] == 10 and restrict_slots.shape[1] == 36,
+          f"ordered_sum: slot widths {A.row_slots.shape[1]}, {restrict_slots.shape[1]}")
+    times = {}
+    for name, (fn, plain, nbytes) in cases.items():
+        before = LAUNCHES["ordered_sum"]
+        got = fn()
+        torch.cuda.synchronize()
+        check(LAUNCHES["ordered_sum"] == before + 1, f"ordered_sum {name}: not one launch")
+        # device operations of one call, from a device-only profiler pass
+        launches = device_trace(fn, 1, cpu=False)["device_ops"]
+        plain_launches = device_trace(plain, 1, cpu=False)["device_ops"]
+        check(launches == 1, f"ordered_sum {name}: {launches} device operations a call")
+        want = plain()
+        view = torch.int32 if got.dtype == torch.float32 else torch.int64
+        check(torch.equal(got.view(view), want.view(view)),
+              f"ordered_sum {name}: differs from the plain chain")
+        cold, warm = cold_warm_ms(fn, flush)
+        times[name] = {
+            "cold_us": cold * 1e3, "warm_us": warm * 1e3,
+            "bound_us": nbytes / HBM_BYTES_PER_S * 1e6,
+            "plain_cold_us": queued_ms(plain, COLD_ITERS, flush) * 1e3,
+            "plain_warm_us": queued_ms(plain, max(1, int(800 // plain_launches))) * 1e3,
+            "host_us": host_us(fn, 200),
+            "plain_host_us": host_us(plain, max(1, int(2000 // plain_launches))),
+            "launches": launches,
+            "plain_launches": plain_launches,
+        }
+
+    grid = grids[0]
+    net, _ = load_model("runs_iso_r5/grad_best.ckpt", grids, device="cuda")
+    A0 = CSR.from_scipy(grid.A, device="cuda")
+    b = randn(A0.shape[0])
+    counts = {}
+    for what, cycles in (("build", None), ("solve_1", 1), ("solve_3", 3)):
+        before = LAUNCHES["ordered_sum"]
+        if cycles is None:
+            h = build_learned_twolevel(net, A0, math.ceil(0.1 * A0.shape[0]))
+        else:
+            learned_solve(h, b, res_tol=0.0, max_iter=cycles)
+        torch.cuda.synchronize()
+        counts[what] = LAUNCHES["ordered_sum"] - before
+    return {
+        "name": "ordered_sum",
+        "route": "cuda",
+        "source": "mlamg_torch/ops/csrc/ordered_sum.cu",
+        "replaces": "no TPU kernel: the chains of elementwise adds of ops/segment.py",
+        "times": times,
+        "bound_by": "bytes (the launch itself at the learned shapes)",
+        "launches_per_learned_build": counts["build"],
+        "launches_per_learned_cycle": (counts["solve_3"] - counts["solve_1"]) / 2,
+        "launches_learned_solve_3": counts["solve_3"],
+    }
+
+
 def dia_kernel_phase(A_sp, Ad, rng) -> tuple[dict, list]:
     """Check dia_spmv on the fine Poisson level and a ragged banded matrix,
     time it on the fine level (D = 5: its 470 MB exceed the 50 MB L2)."""
@@ -1531,7 +1658,7 @@ def bench_phase(hull, poisson) -> tuple[dict, dict]:
     LAUNCHES.clear()
     results, errors = bench_torch.run_cells(device="cuda", samples=BENCH_SAMPLES,
                                             hull=hull, poisson=poisson)
-    launches = {k: LAUNCHES[k] for k in ("well_spmv", "dia_spmv")}
+    launches = {k: LAUNCHES[k] for k in KERNELS}
     # ---------------------------------------------------------------------
     seconds = time.time() - t0
     check(not errors, f"bench cells failed: {errors}")
@@ -1571,10 +1698,11 @@ def eval_phase() -> tuple[dict, dict]:
         card[fam], seconds[fam] = evaluate(grids, nets[fam], device="cuda", **quiet)
         torch.cuda.synchronize()
         seconds[fam]["total"] = time.time() - t0
-    launches = {k: LAUNCHES[k] for k in ("well_spmv", "dia_spmv")}
+    launches = {k: LAUNCHES[k] for k in KERNELS}
     # ---------------------------------------------------------------------
 
-    check(not any(launches.values()), f"eval path launched CUDA kernels: {launches}")
+    check(not any(launches[k] for k in SPMV_KERNELS),
+          f"eval path launched CUDA kernels: {launches}")
     out = {"phase": "eval", "launches": launches, "seconds": seconds, "means": {},
            "committed_means": {}}
     for fam, (grids, ck, ref) in data.items():
@@ -1847,10 +1975,11 @@ def _train_phase(out: dict) -> tuple[dict, dict]:
             *pre_argv, "--device", "cuda", "--out", f"{tmp}/pretrain.ckpt"])
         torch.cuda.synchronize()
         out["seconds_pretrain_epoch"] = time.time() - t0
-        launches = {k: LAUNCHES[k] for k in ("well_spmv", "dia_spmv")}
+        launches = {k: LAUNCHES[k] for k in KERNELS}
         # ---------------------------------------------------------------------
 
-        check(not any(launches.values()), f"train path launched CUDA kernels: {launches}")
+        check(not any(launches[k] for k in SPMV_KERNELS),
+              f"train path launched CUDA kernels: {launches}")
         out.update(launches=launches, train_buckets=len(run.buckets), seconds_per_step=step_s,
                    soft_loss_first_step=first[0], discrete_train=discrete[0],
                    discrete_test=discrete[1], pretrain_card=pre_card.tolist(),
@@ -2031,11 +2160,12 @@ def _ga_phase(out: dict) -> tuple[dict, dict]:
         t0 = time.time()
         res = train_dataset.train(run, log=lines.append)
         torch.cuda.synchronize()
-        launches = {k: LAUNCHES[k] for k in ("well_spmv", "dia_spmv")}
+        launches = {k: LAUNCHES[k] for k in KERNELS}
         out["seconds_train"] = time.time() - t0
         # ---------------------------------------------------------------------
 
-        check(not any(launches.values()), f"GA path launched CUDA kernels: {launches}")
+        check(not any(launches[k] for k in SPMV_KERNELS),
+              f"GA path launched CUDA kernels: {launches}")
         reports = res["reports"]
         out.update(launches=launches, lines=lines,
                    seconds_per_individual=out["seconds_generation_0"] / len(pop0),
@@ -2289,7 +2419,7 @@ def _ns_phase(out: dict) -> tuple[dict, dict]:
             torch.cuda.synchronize()
             if name != "cavity128_pcdr":  # only that one is traced below
                 runs[name]["solver"] = None
-        launches = {k: LAUNCHES[k] for k in ("well_spmv", "dia_spmv")}
+        launches = {k: LAUNCHES[k] for k in KERNELS}
         # ---------------------------------------------------------------------
 
         out["launches"] = launches
@@ -2337,7 +2467,8 @@ def _ns_phase(out: dict) -> tuple[dict, dict]:
         out["f32"], failed32 = _ns_card_vs_cpu(card32, cpu["f32"], dict(
             pcdr=(NS_F32_ITER_BAND, NS_F32_RTOL), sa=None, mlamg=None))
 
-    check(not any(launches.values()), f"ns path launched CUDA kernels: {launches}")
+    check(not any(launches[k] for k in SPMV_KERNELS),
+          f"ns path launched CUDA kernels: {launches}")
     check(not failed, f"ns full-width steps: {failed}")
     check(not failed64, f"ns card vs CPU, float64: {failed64}")
     check(not failed32, f"ns card vs CPU, float32: {failed32}")
@@ -2456,7 +2587,7 @@ def _tools_phase(out: dict) -> tuple[dict, dict]:
                                    log=quiet)
         out["create_data_seconds"] = time.time() - t0
         torch.cuda.synchronize()
-        launches = {k: LAUNCHES[k] for k in ("well_spmv", "dia_spmv")}
+        launches = {k: LAUNCHES[k] for k in KERNELS}
         # ---------------------------------------------------------------------
         out["launches"] = launches
 
@@ -2558,7 +2689,8 @@ def _tools_phase(out: dict) -> tuple[dict, dict]:
         out["cf_step_ms_events"] = cuda_ms(lambda: run.step(0), iters=3, warmup=1)
         out["cf_step_trace"] = device_trace(lambda: run.step(0), iters=1, kernel="nextafter")
 
-    check(not any(launches.values()), f"tools path launched CUDA kernels: {launches}")
+    check(not any(launches[k] for k in SPMV_KERNELS),
+          f"tools path launched CUDA kernels: {launches}")
     out["seconds_phase"] = time.time() - t_phase
     check(out["seconds_phase"] <= TOOLS_SECONDS,
           f"tools phase took {out['seconds_phase']:.1f} s (limit {TOOLS_SECONDS} s)")
@@ -2879,8 +3011,9 @@ def _dist_phase(out: dict) -> tuple[dict, dict]:
     check(viz["float64"]["error_rel_gap"] <= DIST_VIZ_RTOL and viz["float64"]["masks_equal"],
           f"visualize numbers card vs CPU: {viz['float64']}")
 
-    launches = {"well_spmv": LAUNCHES["well_spmv"], "dia_spmv": LAUNCHES["dia_spmv"]}
-    check(not any(launches.values()), f"the distributed path launched CUDA kernels: {launches}")
+    launches = {k: LAUNCHES[k] for k in KERNELS}
+    check(not any(launches[k] for k in SPMV_KERNELS),
+          f"the distributed path launched CUDA kernels: {launches}")
 
     # a trace of one distributed cycle at S = 8 (last: a profiler session
     # slows every later launch of its process)
@@ -2994,9 +3127,10 @@ def _examples_phase(out: dict) -> tuple[dict, dict]:
            if v["lines_held"] == 0 or v["lines_agree"] != v["lines_held"]
            or len(v["lines_float64"]) != v["lines_held"]}
     check(not bad, f"examples: float64 lines on the card differ from the CPU's: {bad}")
-    launches = {"well_spmv": LAUNCHES["well_spmv"], "dia_spmv": LAUNCHES["dia_spmv"]}
+    launches = {k: LAUNCHES[k] for k in KERNELS}
     out["launches"] = launches
-    check(not any(launches.values()), f"the examples launched CUDA kernels: {launches}")
+    check(not any(launches[k] for k in SPMV_KERNELS),
+          f"the examples launched CUDA kernels: {launches}")
     out["seconds_phase"] = time.time() - t_phase
     check(out["seconds_phase"] <= EXAMPLES_SECONDS,
           f"examples phase took {out['seconds_phase']:.1f} s (limit {EXAMPLES_SECONDS} s)")
@@ -3059,6 +3193,8 @@ def main() -> None:
     flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
     kernel = kernel_phase(Ap, rng, flush)
     emit({"phase": "kernels", **{k: kernel[k] for k in ("max_rel_err", "ms", "warm_ms")}})
+    osum = ordered_sum_phase(flush)
+    emit({"phase": "ordered_sum_kernel", **osum})
     path, launches, level_errs, h = path_phase(A, rng)
     emit({key: v for key, v in path.items() if key != "perm"})
     levels = level_table(h, flush)
@@ -3105,6 +3241,7 @@ def main() -> None:
     emit(bench_line)
     kernel["launches_bench"] = bench_launches["well_spmv"]
     dia.update(launches_bench=bench_launches["dia_spmv"])
+    osum["launches_bench"] = bench_launches["ordered_sum"]
     del A, A16
     torch.cuda.empty_cache()
 
@@ -3113,12 +3250,14 @@ def main() -> None:
     emit(eval_line)
     kernel["launches_eval"] = eval_launches["well_spmv"]
     dia.update(launches_eval=eval_launches["dia_spmv"])
+    osum["launches_eval"] = eval_launches["ordered_sum"]
 
     # --- slice 4: gradient training (no kernel on its path) ---
     train_line, train_launches = train_phase()
     emit(train_line)
     kernel["launches_train"] = train_launches["well_spmv"]
     dia.update(launches_train=train_launches["dia_spmv"])
+    osum["launches_train"] = train_launches["ordered_sum"]
 
     # --- slice 5: the GA (no kernel on its path), in a fresh process: a
     # torch.profiler session leaves CUPTI attached to this one, and every
@@ -3130,6 +3269,7 @@ def main() -> None:
     emit(ga_line)
     kernel["launches_ga"] = ga_launches["well_spmv"]
     dia.update(launches_ga=ga_launches["dia_spmv"])
+    osum["launches_ga"] = ga_launches["ordered_sum"]
 
     # --- slice 6: the Navier-Stokes deployment (no kernel on its path), in
     # a fresh process for the same reason ---
@@ -3138,6 +3278,7 @@ def main() -> None:
     emit(ns_line)
     kernel["launches_ns"] = ns_launches["well_spmv"]
     dia.update(launches_ns=ns_launches["dia_spmv"])
+    osum["launches_ns"] = ns_launches["ordered_sum"]
 
     # --- slice 8: the remaining trainers and tools (no kernel on their
     # path), in a fresh process for the same reason ---
@@ -3146,10 +3287,13 @@ def main() -> None:
     emit(tools_line)
     kernel["launches_tools"] = tools_launches["well_spmv"]
     dia.update(launches_tools=tools_launches["dia_spmv"])
+    osum["launches_tools"] = tools_launches["ordered_sum"]
     kernel["launches_dist"] = kernel_launches_dist["well_spmv"]
     dia.update(launches_dist=kernel_launches_dist["dia_spmv"])
+    osum["launches_dist"] = kernel_launches_dist["ordered_sum"]
     kernel["launches_examples"] = examples_launches["well_spmv"]
     dia.update(launches_examples=examples_launches["dia_spmv"])
+    osum["launches_examples"] = examples_launches["ordered_sum"]
     dia.update(
         launches=dia_launches,
         launches_vcycles=structured["dia_spmv_launches_cycles"],
@@ -3158,7 +3302,7 @@ def main() -> None:
         max_rel_err=max(e[1] for e in all_errs),
     )
 
-    emit({"kernels": [kernel, dia]})
+    emit({"kernels": [kernel, dia, osum]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -12,8 +12,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from mlamg_torch.ops.segment import segment_min
-from mlamg_torch.ops.sparse import CSR, slot_sum
+from mlamg_torch.ops.segment import segment_min, slot_sum
+from mlamg_torch.ops.sparse import CSR
 from mlamg_torch.utils import prng
 
 

@@ -32,7 +32,8 @@ from mlamg_torch.mg.interp import sa_omega
 from mlamg_torch.mg.smoothers import _dinv
 from mlamg_torch.ops import matmul
 from mlamg_torch.ops.dia import DIA, dia_jacobi_operator
-from mlamg_torch.ops.sparse import CSR, segment_slots, slot_sum
+from mlamg_torch.ops.segment import slot_sum
+from mlamg_torch.ops.sparse import CSR, segment_slots
 
 
 def dia_transpose(A: DIA) -> DIA:

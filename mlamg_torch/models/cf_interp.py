@@ -20,8 +20,8 @@ from torch import nn
 
 from mlamg_torch.models.gnn import EdgeModel, InstanceNorm, TAGConv
 from mlamg_torch.models.graphdata import GraphData, build_in_ell
-from mlamg_torch.ops.segment import tree_sum
-from mlamg_torch.ops.sparse import COO, CSR, segment_slots, slot_sum
+from mlamg_torch.ops.segment import slot_sum, tree_sum
+from mlamg_torch.ops.sparse import COO, CSR, segment_slots
 
 
 def cf_graph(A: CSR, is_coarse: torch.Tensor) -> GraphData:

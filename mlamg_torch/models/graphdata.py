@@ -15,8 +15,8 @@ import dataclasses
 
 import torch
 
-from mlamg_torch.ops.segment import segment_max
-from mlamg_torch.ops.sparse import CSR, segment_slots, slot_sum
+from mlamg_torch.ops.segment import segment_max, slot_sum
+from mlamg_torch.ops.sparse import CSR, segment_slots
 
 
 @dataclasses.dataclass(frozen=True)

@@ -30,7 +30,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 
 # kernel name -> source file in csrc/
-KERNEL_SOURCES = {"well_spmv": "well_spmv.cu", "dia_spmv": "dia_spmv.cu"}
+KERNEL_SOURCES = {"well_spmv": "well_spmv.cu", "dia_spmv": "dia_spmv.cu",
+                  "ordered_sum": "ordered_sum.cu"}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",

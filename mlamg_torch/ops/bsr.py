@@ -19,8 +19,8 @@ import numpy as np
 import torch
 
 from mlamg_torch.device import resolve_device
-from mlamg_torch.ops.segment import ordered_sum
-from mlamg_torch.ops.sparse import segment_slots, slot_sum
+from mlamg_torch.ops.segment import ordered_sum, slot_sum
+from mlamg_torch.ops.sparse import segment_slots
 
 
 @dataclasses.dataclass(frozen=True)

@@ -4,7 +4,7 @@ A :class:`WindowedELL` goes to ``well_spmv`` and a :class:`DIA` to
 ``dia_spmv`` (the hand-written CUDA kernels on the card; the JAX package
 sends only a pre-blocked DIA on a TPU to its kernel, the port every DIA on
 CUDA).  A :class:`CSR` or :class:`ELL` runs as a gather plus an in-order
-slot sum (:func:`~mlamg_torch.ops.sparse.slot_sum`): the JAX package's
+slot sum (:func:`~mlamg_torch.ops.segment.slot_sum`): the JAX package's
 gather plus ``segment_sum`` in the order the CPU adds it, and the same
 order on every run on the card.  A :class:`BSR` is a batched product of
 its blocks.  A dense tensor is a matmul.
@@ -24,8 +24,8 @@ import torch
 
 from mlamg_torch.ops.bsr import BSR, bsr_spmv, bsr_spmv_t
 from mlamg_torch.ops.dia import DIA, dia_spmm, dia_spmv, dia_spmv_t
-from mlamg_torch.ops.segment import ordered_sum
-from mlamg_torch.ops.sparse import COO, CSR, ELL, slot_sum
+from mlamg_torch.ops.segment import ordered_sum, slot_sum
+from mlamg_torch.ops.sparse import COO, CSR, ELL
 from mlamg_torch.ops.unstructured import WindowedELL, well_spmv
 
 

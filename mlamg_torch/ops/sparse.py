@@ -6,10 +6,11 @@ drop), ``col == 0`` and ``data == 0``, and sit at the tail.  Row and column
 ids are int64, the index type of torch's scatter/gather ops.
 
 Sums over a row or a column never scatter: :func:`segment_slots` lists
-each segment's entries in entry order, and :func:`slot_sum` adds them
-slot by slot.  That is the order of the JAX package's ``segment_sum`` on
-the CPU, and it is the same on every run on the card, where
-``index_add_`` would add in the order its atomics land.
+each segment's entries in entry order, and
+:func:`~mlamg_torch.ops.segment.slot_sum` (one kernel launch on the card)
+adds them slot by slot.  That is the order of the JAX package's
+``segment_sum`` on the CPU, and it is the same on every run on the card,
+where ``index_add_`` would add in the order its atomics land.
 """
 
 from __future__ import annotations
@@ -22,7 +23,6 @@ import numpy as np
 import torch
 
 from mlamg_torch.device import resolve_device
-from mlamg_torch.ops.segment import ordered_sum
 from mlamg_torch.utils.profiler import SYNCS
 
 
@@ -59,13 +59,6 @@ def segment_slots(ids: torch.Tensor, num_segments: int,
                        torch.full_like(skey, num_segments * width))
     out = torch.full((num_segments * width + 1,), E, dtype=torch.int64, device=ids.device)
     return out.scatter_(0, slot, order)[:-1].view(num_segments, width)
-
-
-def slot_sum(values: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
-    """out[i] = sum_s values[slots[i, s]], added in slot order (a slot equal
-    to ``len(values)`` adds zero)."""
-    pad = values.new_zeros((1,) + tuple(values.shape[1:]))
-    return ordered_sum(torch.cat([values, pad])[slots], 1)
 
 
 def _padded(nnz: int, nnz_pad: int | None, m: int):

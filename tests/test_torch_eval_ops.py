@@ -34,8 +34,8 @@ from mlamg_torch.mg import cycle as tcycle
 from mlamg_torch.mg import interp as tinterp
 from mlamg_torch.mg import smoothers as tsmoothers
 from mlamg_torch.ops import matmul as tmm
-from mlamg_torch.ops.segment import tree_sum
-from mlamg_torch.ops.sparse import CSR, segment_slots, slot_sum
+from mlamg_torch.ops.segment import slot_sum, tree_sum
+from mlamg_torch.ops.sparse import CSR, segment_slots
 
 # the module: the package re-exports its function under the same name, as
 # mlamg_tpu.graph does

@@ -252,7 +252,9 @@ def test_driver_runs_the_cell_on_two_grids(two_grid_cell):
     ``harness/spans.py`` finds a root ``build`` span on each build."""
     from harness import core, spans
 
-    result, lines = core.run("iso2d_learned.grid", 2**31 + 77, 0.5, True, time.perf_counter(),
+    # a 2-s window: a request takes ~80 ms alone but over 0.5 s on a CPU
+    # that six test workers share, and the window must hold two
+    result, lines = core.run("iso2d_learned.grid", 2**31 + 77, 2.0, True, time.perf_counter(),
                              device="cpu", loaded=two_grid_cell)
     assert result["correct"] and result["failed"] == 0 and result["attempted"] >= 2
     assert set(result["check"]) == {"residual", "unconverged", "centers", "aggregation", "gnn",
