@@ -393,7 +393,7 @@ def library_times(A_sp, x, dev, flush) -> tuple[float, float]:
 
 
 def _launches():
-    from mlamg_torch.ops.unstructured import LAUNCHES
+    from mlamg_torch.utils.profiler import LAUNCHES
 
     return {k: LAUNCHES[k] for k in ("dia_spmv", "well_spmv")}
 

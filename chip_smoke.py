@@ -877,7 +877,7 @@ def path_phase(A, rng) -> tuple[dict, int, list, object]:
     from mlamg_torch.mg.amg_unstructured import (
         build_unstructured_hierarchy, uvcycle, uvcycle_solve,
     )
-    from mlamg_torch.ops.unstructured import LAUNCHES
+    from mlamg_torch.utils.profiler import LAUNCHES
 
     dev = "cuda"
     n = A.shape[0]
@@ -1051,7 +1051,7 @@ def galerkin_phase(A, path: dict, h_host) -> tuple[dict, int]:
     )
     from mlamg_torch.mg.interp import smoothed_aggregation
     from mlamg_torch.ops.sparse import CSR
-    from mlamg_torch.ops.unstructured import LAUNCHES
+    from mlamg_torch.utils.profiler import LAUNCHES
 
     t_phase = time.time()
     dev = "cuda"
@@ -1463,7 +1463,7 @@ def structured_phase(A_sp, Ad, stages: dict, rng) -> tuple[dict, int, list]:
     from mlamg_torch.mg.cycle import vcycle
     from mlamg_torch.mg.structured import build_structured_hierarchy
     from mlamg_torch.ops.matmul import spmv_affine
-    from mlamg_torch.ops.unstructured import LAUNCHES
+    from mlamg_torch.utils.profiler import LAUNCHES
 
     n = Ad.shape[0]
     x0 = torch.from_numpy(np.random.RandomState(0).randn(n).astype(np.float32)).cuda()
@@ -1558,7 +1558,7 @@ def twolevel_phase(rng) -> tuple[dict, int, list]:
     from mlamg_torch.mg.cycle import coarse_operator, twolevel_solve
     from mlamg_torch.mg.factored import BoxAgg2D, factored_sa
     from mlamg_torch.ops.dia import DIA
-    from mlamg_torch.ops.unstructured import LAUNCHES
+    from mlamg_torch.utils.profiler import LAUNCHES
 
     nx, side, iters = TWOLEVEL_GRID, TWOLEVEL_SIDE, TWOLEVEL_ITERS
     A_sp = poisson2d(nx)
@@ -1651,7 +1651,7 @@ def bench_phase(hull, poisson) -> tuple[dict, dict]:
     """bench_torch's seven cells in this process on the 600k hull and the
     4096^2 Poisson already built (see the module docstring)."""
     import bench_torch
-    from mlamg_torch.ops.unstructured import LAUNCHES
+    from mlamg_torch.utils.profiler import LAUNCHES
 
     t0 = time.time()
     # --- the main path: counts set to 0 just before, read just after ---
@@ -1682,7 +1682,7 @@ def eval_phase() -> tuple[dict, dict]:
     from mlamg_torch.cli.evaluate_dataset import evaluate, load_model
     from mlamg_torch.data.grid import Grid
     from mlamg_torch.mg.cycle import twolevel_solve
-    from mlamg_torch.ops.unstructured import LAUNCHES
+    from mlamg_torch.utils.profiler import LAUNCHES
     from mlamg_torch.train import GridBundle, SolveOptions, measured_conv
 
     t_phase = time.time()
@@ -1936,7 +1936,7 @@ def _train_phase(out: dict) -> tuple[dict, dict]:
     from mlamg_torch.cli.evaluate_dataset import load_model
     from mlamg_torch.ga.codec import assign_flat
     from mlamg_torch.models.soft_pipeline import soft_conv_loss
-    from mlamg_torch.ops.unstructured import LAUNCHES
+    from mlamg_torch.utils.profiler import LAUNCHES
     from mlamg_torch.train import GridBundle, SolveOptions, bundle_conv, make_buckets
     from mlamg_torch.utils.checkpoint import save_checkpoint
 
@@ -2126,7 +2126,7 @@ def _ga_phase(out: dict) -> tuple[dict, dict]:
     from mlamg_torch.convert import fullaggnet_from_params
     from mlamg_torch.data.grid import Grid
     from mlamg_torch.ga import flatten_params
-    from mlamg_torch.ops.unstructured import LAUNCHES
+    from mlamg_torch.utils.profiler import LAUNCHES
     from mlamg_torch.train import bucketed_convs, measured_conv
     from mlamg_torch.utils.checkpoint import load_checkpoint
     from mlamg_torch.utils.profiler import Profiler
@@ -2341,7 +2341,7 @@ def _ns_phase(out: dict) -> tuple[dict, dict]:
     from mlamg_torch.deploy import LearnedAMGPreconditioner, Options, SchurFieldsplitSolver
     from mlamg_torch.deploy.fieldsplit import _CallableOp
     from mlamg_torch.mg.krylov import fgmres
-    from mlamg_torch.ops.unstructured import LAUNCHES
+    from mlamg_torch.utils.profiler import LAUNCHES
 
     torch.backends.cuda.matmul.allow_tf32 = False
     t_phase = time.time()
@@ -2548,7 +2548,7 @@ def _tools_phase(out: dict) -> tuple[dict, dict]:
     import torch
     from mlamg_torch.cli import (create_data, evaluate_model, optimize_grid_param, solve_ns,
                                  train_cf_interp, train_convergence)
-    from mlamg_torch.ops.unstructured import LAUNCHES
+    from mlamg_torch.utils.profiler import LAUNCHES
 
     torch.backends.cuda.matmul.allow_tf32 = False
     t_phase = time.time()
@@ -2850,7 +2850,7 @@ def _dist_phase(out: dict) -> tuple[dict, dict]:
     from mlamg_torch.mg.coarse import CoarseSolver
     from mlamg_torch.mg.cycle import twolevel_solve
     from mlamg_torch.ops.sparse import CSR
-    from mlamg_torch.ops.unstructured import LAUNCHES
+    from mlamg_torch.utils.profiler import LAUNCHES
     from mlamg_torch.parallel import distributed
     from mlamg_torch.parallel.pcycle import DistributedCycle
     from mlamg_torch.train import GridBundle, SolveOptions, make_buckets
@@ -3097,7 +3097,7 @@ def examples_phase() -> tuple[dict, dict]:
 
 def _examples_phase(out: dict) -> tuple[dict, dict]:
     import torch
-    from mlamg_torch.ops.unstructured import LAUNCHES
+    from mlamg_torch.utils.profiler import LAUNCHES
 
     torch.backends.cuda.matmul.allow_tf32 = False
     t_phase = time.time()

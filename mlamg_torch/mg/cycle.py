@@ -1,10 +1,17 @@
 """Two-level solve, multilevel V-cycle and the convergence-factor readout
-(counterpart of ``mlamg_tpu/mg/cycle.py``).
+(counterpart of ``mlamg_tpu/mg/cycle.py``), and the cycle layer every
+solver of the port shares.
 
 The JAX package runs each solve as one ``lax.while_loop``; here the loop
 is Python on the host and every SpMV goes through ``ops/matmul.py``, so a
 DIA operator on the card launches the ``dia_spmv`` kernel.  The stopping
 test reads each iteration's norm on the host.
+
+One recursion, :func:`_cycle`, runs the V/W-cycle of :func:`vcycle` and of
+``mg/amg_unstructured.py``'s ``uvcycle``; one loop, :func:`_solve`, runs
+``vcycle_solve``, ``twolevel_solve`` and ``uvcycle_solve`` (with its
+:class:`CycleGraph`, where the caller passes a dict of graphs).  This
+module imports none of the solvers built on it.
 
 Ported: ``twolevel_solve`` with weighted Jacobi (fused or not),
 Chebyshev (``lmax`` by power iteration unless given) and multicolor
@@ -32,7 +39,7 @@ from mlamg_torch.ops import matmul
 from mlamg_torch.ops.dia import DIA, dia_jacobi_operator
 from mlamg_torch.ops.sparse import CSR, ELL
 from mlamg_torch.utils import prng
-from mlamg_torch.utils.profiler import SYNCS, Profiler
+from mlamg_torch.utils.profiler import GRAPHS, LAUNCHES, SYNCS, Profiler
 
 
 def _is_factored(P) -> bool:
@@ -124,11 +131,11 @@ def twolevel_solve(
         M_fused = dia_jacobi_operator(A, Dinv, jacobi_weight)
         c_fused = jacobi_weight * Dinv * b
 
-    def smooth(x, nu):
+    def smooth(b, x, nu):
         if nu == 0:
             return x
         if M_fused is not None:
-            for _ in range(nu):
+            for _ in range(nu):  # c_fused is formed once, from the solve's b
                 x = matmul.spmv_affine(M_fused, x, c=c_fused)
             return x
         if smoother == "jacobi":
@@ -138,35 +145,22 @@ def twolevel_solve(
                                            smoother_args["num_colors"], nu=nu, Dinv=Dinv)
         return chebyshev(A, b, x, smoother_args["lmax"], degree=nu + 1, Dinv=Dinv)
 
-    err = torch.zeros(max_iter, dtype=x0.dtype, device=x0.device)
-    x = x0
-    iters = 0
-    with Profiler("solve"):
-        while iters < max_iter:
-            with Profiler("cycle"), Profiler("level", level=0):
-                with Profiler("pre_smooth"):
-                    x = smooth(x, pre_smoothing_steps)
-                with Profiler("restrict"):
-                    r_H = _restrict(P, matmul.spmv_affine(A, x, c=b, alpha=-1.0))  # b - A x
-                with Profiler("coarse_solve"):
-                    e_H = coarse.solve(r_H)
-                with Profiler("interp"):
-                    x = x + _interp(P, e_H)
-                with Profiler("post_smooth"):
-                    x = smooth(x, post_smoothing_steps)
-                    if singular:
-                        x = x - x.mean()
-            with Profiler("residual_norm"):
-                e = torch.linalg.vector_norm(
-                    matmul.spmv_affine(A, x, c=b, alpha=-1.0) if use_res else x
-                )
-                err[iters] = e
-                SYNCS["twolevel.residual"] += 1
-                done = float(e) <= tol
-            iters += 1
-            if done:
-                break
-    return x, _conv_factor(err, iters), err, iters
+    def cycle(b, x):
+        with Profiler("level", level=0):
+            with Profiler("pre_smooth"):
+                x = smooth(b, x, pre_smoothing_steps)
+            with Profiler("restrict"):
+                r_H = _restrict(P, matmul.spmv_affine(A, x, c=b, alpha=-1.0))  # b - A x
+            with Profiler("coarse_solve"):
+                e_H = coarse.solve(r_H)
+            with Profiler("interp"):
+                x = x + _interp(P, e_H)
+            with Profiler("post_smooth"):
+                x = smooth(b, x, post_smoothing_steps)
+                return x - x.mean() if singular else x
+
+    return _solve(cycle, A, b, x0, tol=tol, max_iter=max_iter, residual=use_res,
+                  sync="twolevel.residual")
 
 
 def _conv_factor(err: torch.Tensor, iters: int) -> float:
@@ -278,10 +272,53 @@ def build_hierarchy(A: CSR, *, alpha: float = 0.1, max_levels: int = 3, min_coar
     return Hierarchy(tuple(As[:-1]), tuple(Ps), tuple(Dinvs), coarse)
 
 
-def _level_spmv(A, x: torch.Tensor) -> torch.Tensor:
-    if isinstance(A, torch.Tensor):
-        return A @ x
-    return matmul.spmv(A, x)
+def _cycle(levels, coarse: CoarseSolver, interp, restrict, b: torch.Tensor, x: torch.Tensor,
+           *, smoother: str, omega: float, nu, lmin_frac: float, gamma: int) -> torch.Tensor:
+    """The V/W recursion of :func:`vcycle` and ``uvcycle``, without their
+    ``cycle`` span.  ``levels[l]`` is level l's (A, Dinv, lmax, P):
+    ``restrict(P, r)`` and ``interp(P, e)`` apply its P^T and P, ``coarse``
+    solves below the last level.  Every residual b - A x is one
+    ``spmv_affine`` (one kernel pass on a DIA or WindowedELL level)."""
+    if smoother not in ("jacobi", "chebyshev"):
+        raise ValueError(f"unknown smoother {smoother}")
+
+    def descend(l, b, x):
+        A, Dinv, lmax, P = levels[l]
+        nu_l = int(nu) if isinstance(nu, numbers.Integral) else int(nu[min(l, len(nu) - 1)])
+
+        def smooth(x):
+            if smoother == "chebyshev":
+                return chebyshev(A, b, x, 1.1 * lmax, lmin_frac=lmin_frac, degree=nu_l + 1,
+                                 Dinv=Dinv)
+            for _ in range(nu_l):
+                x = x + omega * Dinv * matmul.spmv_affine(A, x, c=b, alpha=-1.0)
+            return x
+
+        with Profiler("level", level=l):
+            with Profiler("pre_smooth"):
+                x = smooth(x)
+            with Profiler("restrict"):
+                r_H = restrict(P, matmul.spmv_affine(A, x, c=b, alpha=-1.0))
+            if l + 1 == len(levels):
+                with Profiler("coarse_solve"):
+                    e_H = coarse.solve(r_H)
+            else:
+                e_H = descend(l + 1, r_H, torch.zeros_like(r_H))
+                for _ in range(gamma - 1):
+                    e_H = descend(l + 1, r_H, e_H)
+            with Profiler("interp"):
+                x = x + interp(P, e_H)
+            with Profiler("post_smooth"):
+                return smooth(x)
+
+    return descend(0, b, x)
+
+
+def _levels(h: Hierarchy, smoother: str) -> list:
+    """:func:`_cycle`'s levels of ``h`` (``lmaxs`` read for Chebyshev only)."""
+    cheb = smoother == "chebyshev"
+    return [(h.As[l], h.Dinvs[l], h.lmaxs[l] if cheb else None, h.Ps[l])
+            for l in range(h.num_levels)]
 
 
 def vcycle(h: Hierarchy, b: torch.Tensor, x: torch.Tensor, *, omega: float = 0.666,
@@ -300,42 +337,9 @@ def vcycle(h: Hierarchy, b: torch.Tensor, x: torch.Tensor, *, omega: float = 0.6
     ``restrict`` (the residual and its restriction), the next level's
     visits or, on the deepest, ``coarse_solve``, then ``interp`` (the
     interpolation and the correction) and ``post_smooth``."""
-    if smoother not in ("jacobi", "chebyshev"):
-        raise ValueError(f"unknown smoother {smoother}")
-
-    def descend(l, b, x):
-        A = h.As[l]
-        Dinv = h.Dinvs[l]
-        nu_l = int(nu) if isinstance(nu, numbers.Integral) else int(nu[min(l, len(nu) - 1)])
-
-        def smooth(x):
-            if smoother == "chebyshev":
-                return chebyshev(A, b, x, 1.1 * h.lmaxs[l], lmin_frac=lmin_frac,
-                                 degree=nu_l + 1, Dinv=Dinv)
-            for _ in range(nu_l):
-                x = x + omega * Dinv * (b - _level_spmv(A, x))
-            return x
-
-        with Profiler("level", level=l):
-            with Profiler("pre_smooth"):
-                x = smooth(x)
-            with Profiler("restrict"):
-                r = b - _level_spmv(A, x)
-                r_H = _restrict(h.Ps[l], r)
-            if l + 1 == len(h.As):
-                with Profiler("coarse_solve"):
-                    e_H = h.coarse.solve(r_H)
-            else:
-                e_H = descend(l + 1, r_H, torch.zeros_like(r_H))
-                for _ in range(gamma - 1):
-                    e_H = descend(l + 1, r_H, e_H)
-            with Profiler("interp"):
-                x = x + _interp(h.Ps[l], e_H)
-            with Profiler("post_smooth"):
-                return smooth(x)
-
     with Profiler("cycle"):
-        return descend(0, b, x)
+        return _cycle(_levels(h, smoother), h.coarse, _interp, _restrict, b, x,
+                      smoother=smoother, omega=omega, nu=nu, lmin_frac=lmin_frac, gamma=gamma)
 
 
 def vcycle_solve(h: Hierarchy, b: torch.Tensor, x0: torch.Tensor, *,
@@ -343,18 +347,115 @@ def vcycle_solve(h: Hierarchy, b: torch.Tensor, x0: torch.Tensor, *,
                  omega: float = 0.666, nu: int = 1):
     """Iterated Jacobi V-cycles with the same convergence-factor readout as
     :func:`twolevel_solve`.  Returns (x, conv_factor, err, iters)."""
-    A = h.As[0]
+    levels = _levels(h, "jacobi")
+
+    def cycle(b, x):
+        return _cycle(levels, h.coarse, _interp, _restrict, b, x, smoother="jacobi",
+                      omega=omega, nu=nu, lmin_frac=1.0 / 15.0, gamma=1)
+
+    return _solve(cycle, h.As[0], b, x0, tol=res_tol, max_iter=max_iter)
+
+
+# ---------------------------------------------------------------------------
+# The solve loop and its CUDA graph
+# ---------------------------------------------------------------------------
+
+
+class CycleGraph:
+    """One cycle captured as a CUDA graph: its static ``b`` and ``x``, and
+    the graph, which reads the operators' tensors by address and holds its
+    temporaries in a memory pool of its own.  A replay runs the cycle on
+    ``b`` and ``x`` and leaves the result in ``x``; the cycle's host floats
+    (``lmax``, ``omegas``, the Chebyshev recurrence's scalars) are baked
+    in, and the tensors it reads are frozen.
+
+    It is captured on a side stream with ``capture_begin``/``capture_end``
+    (``torch.cuda.graph`` would run a garbage collection and empty the
+    allocator's cache first), from inputs the caller has warmed with one
+    eager cycle.  Capturing runs nothing: the caller replays after it.
+    ``launches`` is what the kernels' launcher counted into ``LAUNCHES``
+    while they were captured, the hand-written kernels' launches of one
+    replay: taken back out at capture and added at each replay, so
+    ``LAUNCHES`` counts launches on the device.  The graph keeps no
+    reference to ``cycle``, so it is freed with whatever owns it."""
+
+    def __init__(self, cycle, b: torch.Tensor, x: torch.Tensor):
+        self.b, self.x = b.clone(), x.clone()
+        self.graph = torch.cuda.CUDAGraph()
+        counted = LAUNCHES.copy()
+        stream = torch.cuda.Stream(b.device)
+        stream.wait_stream(torch.cuda.current_stream(b.device))
+        with torch.cuda.stream(stream):
+            self.graph.capture_begin()  # without a pool: a private one
+            try:
+                self.x.copy_(cycle(self.b, self.x))
+            finally:
+                self.graph.capture_end()
+        self.launches = LAUNCHES - counted
+        LAUNCHES.subtract(self.launches)
+
+    def replay(self) -> torch.Tensor:
+        self.graph.replay()
+        LAUNCHES.update(self.launches)
+        return self.x
+
+
+def _solve(cycle, A, b: torch.Tensor, x0: torch.Tensor, *, tol: float, max_iter: int,
+           residual: bool = True, sync: str | None = None, graphs: dict | None = None,
+           name: str = "", key: tuple = ()):
+    """Iterate ``x = cycle(b, x)`` from ``x0`` until the stopping norm is at
+    most ``tol`` or ``max_iter`` cycles; returns (x, conv_factor, err,
+    iters), ``err`` a (max_iter,) buffer of the norms, zero past ``iters``.
+
+    The stopping norm is ||b - A x|| (||x|| unless ``residual``), read on
+    the host each cycle and counted in ``SYNCS[sync]`` where ``sync`` is
+    given.  Spans: ``solve``, holding per cycle ``cycle`` (the cycle's own
+    spans inside it) and ``residual_norm``.
+
+    With a dict ``graphs`` (its owner's), ``GRAPHS`` counts each cycle
+    under ``name`` + ``.eager``, ``.capture`` or ``.replay``, as does the
+    ``graph`` attribute of its ``cycle`` span.  On a CUDA ``b`` the cycle
+    is then a :class:`CycleGraph` kept in ``graphs`` under ``key`` and b's
+    shape, dtype and device: the first solve runs its first cycle eagerly,
+    captures the second and replays it from then on; a later solve copies
+    b and x0 into the graph's buffers and replays every cycle.  The norm
+    and its host read stay outside the graph; the x returned is never the
+    graph's own buffer."""
     err = torch.zeros(max_iter, dtype=x0.dtype, device=x0.device)
+    graphed = graphs is not None and b.device.type == "cuda"
+    key = (*key, tuple(b.shape), b.dtype, b.device)
+    g = graphs.get(key) if graphed else None
+    if g is not None:
+        g.b.copy_(b)
+        g.x.copy_(x0)
     x = x0
     iters = 0
     with Profiler("solve"):
         while iters < max_iter:
-            x = vcycle(h, b, x, omega=omega, nu=nu)
+            if graphs is None:
+                with Profiler("cycle"):
+                    x = cycle(b, x)
+            else:
+                mode = "eager" if g is None and (not graphed or iters == 0) else (
+                    "capture" if g is None else "replay")
+                with Profiler("cycle", graph=mode):
+                    if mode == "eager":
+                        x = cycle(b, x)
+                    else:
+                        if g is None:
+                            g = graphs[key] = CycleGraph(cycle, b, x)
+                        x = g.replay()
+                GRAPHS[f"{name}.{mode}"] += 1
             with Profiler("residual_norm"):
-                e = torch.linalg.vector_norm(b - _level_spmv(A, x))
+                e = torch.linalg.vector_norm(
+                    matmul.spmv_affine(A, x, c=b, alpha=-1.0) if residual else x)
                 err[iters] = e
-                done = float(e) <= res_tol
+                if sync is not None:
+                    SYNCS[sync] += 1
+                done = float(e) <= tol
             iters += 1
             if done:
                 break
+    if g is not None:
+        x = x.clone()
     return x, _conv_factor(err, iters), err, iters

@@ -1,4 +1,5 @@
-"""Build the port's native code at first use, never at import.
+"""Build the port's native code at first use, never at import, and launch
+its CUDA kernels.
 
 Every library is compiled from sources in the checkout into
 ``mlamg_torch/_build/`` (listed in ``.gitignore``) and loaded with ctypes:
@@ -13,6 +14,13 @@ the compiler's version and the host name, so an edited source is rebuilt
 and a library built by another toolchain or on another machine is not
 loaded.  The compiler writes to a private temporary file that is renamed
 into place, so concurrent processes may build the same library safely.
+
+:func:`launch` is every kernel wrapper's way onto the card: it loads the
+kernel's library at its first launch (:func:`kernel_library`, which also
+sets the entry points' argument types), checks the operand's device,
+passes the current stream, turns a failed launch into an error and counts
+the launch in ``LAUNCHES``.  :func:`check_vector` is the spmv wrappers'
+check of a vector operand.
 """
 
 from __future__ import annotations
@@ -26,6 +34,10 @@ import subprocess
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+import torch
+
+from mlamg_torch.utils.profiler import LAUNCHES
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 
@@ -37,6 +49,17 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
 )
 BUILD_TIMEOUT_S = 600
+
+_P, _INT, _PLAN = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int64)
+# kernel name -> its library's entry points and their argument types, the
+# stream last; each returns a CUDA error code (0: launched)
+KERNEL_ENTRIES = {
+    "well_spmv": {"well_spmv_f32": [_P] * 8 + [_INT, _INT, _INT, ctypes.c_float, _P]},
+    "dia_spmv": {"dia_spmv_f32": [_P, _P, _INT, _P, _P, _P, ctypes.c_int64, ctypes.c_float,
+                                  _P]},
+    "ordered_sum": {"ordered_sum": [_INT, _P, _P, _PLAN, _P],
+                    "slot_sum": [_INT, _P, _P, _P, _PLAN, _P]},
+}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _COMPILER_VERSIONS: dict[str, str] = {}
@@ -113,8 +136,40 @@ def build_kernels(names=None) -> dict[str, Path]:
 
 
 def kernel_library(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built first if needed."""
+    """The loaded library of kernel ``name``, built first if needed, its
+    entry points typed from ``KERNEL_ENTRIES``."""
     lib = _LIBS.get(name)
     if lib is None:
-        lib = _LIBS[name] = ctypes.CDLL(str(build_kernels([name])[name]))
+        lib = ctypes.CDLL(str(build_kernels([name])[name]))
+        for entry, argtypes in KERNEL_ENTRIES[name].items():
+            fn = getattr(lib, entry)
+            fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        _LIBS[name] = lib
     return lib
+
+
+def launch(name: str, entry: str, t: torch.Tensor, *args) -> None:
+    """Call ``entry`` of kernel ``name``'s library with ``args`` and the
+    current stream of ``t``'s device, and count one launch in
+    ``LAUNCHES[name]``.  Raises ``ValueError`` unless ``t`` is on the
+    current device, ``RuntimeError`` if the launch fails."""
+    index = t.get_device()
+    if index != torch.cuda.current_device():
+        raise ValueError(f"{name}: operands on cuda:{index} but the current device is "
+                         f"cuda:{torch.cuda.current_device()}")
+    rc = getattr(_LIBS.get(name) or kernel_library(name), entry)(
+        *args, torch._C._cuda_getCurrentRawStream(index))
+    if rc != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {rc}")
+    LAUNCHES[name] += 1
+
+
+def check_vector(kernel: str, name: str, v: torch.Tensor, n: int, device) -> None:
+    """Raises unless ``v`` is a contiguous (n,) tensor on ``device``."""
+    if v.shape != (n,) or not v.is_contiguous():
+        raise ValueError(
+            f"{kernel}: {name} must be a contiguous ({n},) tensor, got "
+            f"{tuple(v.shape)} contiguous={v.is_contiguous()}"
+        )
+    if v.device != device:
+        raise ValueError(f"{kernel}: {name} is on {v.device}, operator on {device}")

@@ -31,7 +31,6 @@ import torch
 
 from mlamg_torch.device import resolve_device
 from mlamg_torch.ops import _build
-from mlamg_torch.utils.profiler import LAUNCHES
 
 # Most diagonals the CUDA kernel takes (its offsets travel by value in the
 # launch parameters; must equal DIA_MAX_D in csrc/dia_spmv.cu).
@@ -146,36 +145,9 @@ def dia_spmv_reference(A: DIA, x: torch.Tensor, c: torch.Tensor | None = None,
     return y if c is None else y + c
 
 
-_LIB = None
-
-
-def _lib():
-    global _LIB
-    if _LIB is None:
-        lib = _build.kernel_library("dia_spmv")
-        p = ctypes.c_void_p
-        lib.dia_spmv_f32.argtypes = [
-            p, p, ctypes.c_int, p, p, p, ctypes.c_int64, ctypes.c_float, p,
-        ]
-        lib.dia_spmv_f32.restype = ctypes.c_int
-        _LIB = lib
-    return _LIB
-
-
-def _check_vector(name: str, v: torch.Tensor, n: int, device) -> None:
-    if v.shape != (n,) or not v.is_contiguous():
-        raise ValueError(
-            f"dia_spmv: {name} must be a contiguous ({n},) tensor, got "
-            f"{tuple(v.shape)} contiguous={v.is_contiguous()}"
-        )
-    if v.device != device:
-        raise ValueError(f"dia_spmv: {name} is on {v.device}, operator on {device}")
-
-
 def _dia_spmv_cuda(A: DIA, x: torch.Tensor, c, alpha: float) -> torch.Tensor:
     n = A.shape[0]
     D = len(A.offsets)
-    dev = A.device
     if D > DIA_MAX_D:
         raise ValueError(f"dia_spmv: the CUDA kernel takes at most {DIA_MAX_D} "
                          f"diagonals, got {D}")
@@ -184,21 +156,11 @@ def _dia_spmv_cuda(A: DIA, x: torch.Tensor, c, alpha: float) -> torch.Tensor:
         raise ValueError("dia_spmv: the CUDA kernel takes float32 operands")
     if A.data.shape != (D, n) or not A.data.is_contiguous():
         raise ValueError(f"dia_spmv: data must be a contiguous ({D}, {n}) tensor")
-    if dev.index != torch.cuda.current_device():
-        raise ValueError(
-            f"dia_spmv: operands on {dev} but the current device is "
-            f"cuda:{torch.cuda.current_device()}"
-        )
-    y = torch.empty(n, dtype=torch.float32, device=dev)
+    y = torch.empty(n, dtype=torch.float32, device=A.device)
     offsets = (ctypes.c_int64 * max(D, 1))(*A.offsets)
-    rc = _lib().dia_spmv_f32(
-        A.data.data_ptr(), ctypes.cast(offsets, ctypes.c_void_p), D,
-        x.data_ptr(), None if c is None else c.data_ptr(), y.data_ptr(),
-        n, float(alpha), torch.cuda.current_stream(dev).cuda_stream,
-    )
-    if rc != 0:
-        raise RuntimeError(f"dia_spmv: kernel launch failed with CUDA error {rc}")
-    LAUNCHES["dia_spmv"] += 1
+    _build.launch("dia_spmv", "dia_spmv_f32", A.data, A.data.data_ptr(),
+                  ctypes.cast(offsets, ctypes.c_void_p), D, x.data_ptr(),
+                  None if c is None else c.data_ptr(), y.data_ptr(), n, float(alpha))
     return y
 
 
@@ -209,9 +171,9 @@ def dia_spmv(A: DIA, x: torch.Tensor, c: torch.Tensor | None = None,
     On both, x and c must be contiguous (n,) tensors on A's device."""
     if x.device.type not in ("cuda", "cpu"):
         raise ValueError(f"dia_spmv: unsupported device {x.device}")
-    _check_vector("x", x, A.shape[0], A.device)
+    _build.check_vector("dia_spmv", "x", x, A.shape[0], A.device)
     if c is not None:
-        _check_vector("c", c, A.shape[0], A.device)
+        _build.check_vector("dia_spmv", "c", c, A.shape[0], A.device)
     if x.device.type == "cuda":
         return _dia_spmv_cuda(A, x, c, alpha)
     return dia_spmv_reference(A, x, c, alpha)

@@ -60,6 +60,8 @@ def spmv_affine(A, x: torch.Tensor, c: torch.Tensor | None = None,
     if isinstance(A, DIA):
         return dia_spmv(A, x, c=c, alpha=alpha)
     y = spmv(A, x)
+    if alpha == -1.0 and c is not None:
+        return c - y  # the bits of -y + c, in one pass
     if alpha != 1.0:
         y = alpha * y
     return y if c is None else y + c

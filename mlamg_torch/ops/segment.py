@@ -25,7 +25,6 @@ import functools
 import torch
 
 from mlamg_torch.ops import _build
-from mlamg_torch.utils.profiler import LAUNCHES
 
 # Most output dimensions a launch takes once neighbours are merged (must
 # equal ORDERED_SUM_MAX_DIMS in ops/csrc/ordered_sum.cu).
@@ -135,21 +134,6 @@ class _SlotSum(torch.autograd.Function):
         return out[:ctx.E], None
 
 
-_LIB = None
-
-
-def _lib():
-    global _LIB
-    if _LIB is None:
-        lib = _build.kernel_library("ordered_sum")
-        p, plan = ctypes.c_void_p, ctypes.POINTER(ctypes.c_int64)
-        lib.ordered_sum.argtypes = [ctypes.c_int, p, p, plan, p]
-        lib.slot_sum.argtypes = [ctypes.c_int, p, p, p, plan, p]
-        lib.ordered_sum.restype = lib.slot_sum.restype = ctypes.c_int
-        _LIB = lib
-    return _LIB
-
-
 def _geometry(sizes, strides) -> list:
     """The kernel's geometry of dimensions ``sizes`` read at ``strides``:
     [nd, sizes..., strides...] with size-1 dimensions dropped and each
@@ -198,31 +182,22 @@ def _slot_plan(shape: torch.Size, strides: tuple, slots_shape: torch.Size,
                                       *slots_strides, *_geometry(inner, strides[1:])])
 
 
-def _launch(fn, t: torch.Tensor, *args) -> None:
-    """Launch ``fn`` of the kernel's library on the current device's
-    current stream; raises unless ``t`` is float32 or float64 on that
-    device, or if the launch fails."""
+def _double(t: torch.Tensor) -> int:
+    """The kernel's dtype flag of ``t``: 0 float32, 1 float64; raises for
+    any other dtype."""
     if t.dtype is torch.float32:
-        double = 0
-    elif t.dtype is torch.float64:
-        double = 1
-    else:
-        raise ValueError(f"ordered_sum: the CUDA kernel takes float32 or float64, got {t.dtype}")
-    index = t.get_device()
-    if index != torch.cuda.current_device():
-        raise ValueError(f"ordered_sum: operand on cuda:{index} but the current device is "
-                         f"cuda:{torch.cuda.current_device()}")
-    rc = fn(double, *args, torch._C._cuda_getCurrentRawStream(index))
-    if rc != 0:
-        raise RuntimeError(f"ordered_sum: kernel launch failed with CUDA error {rc}")
-    LAUNCHES["ordered_sum"] += 1
+        return 0
+    if t.dtype is torch.float64:
+        return 1
+    raise ValueError(f"ordered_sum: the CUDA kernel takes float32 or float64, got {t.dtype}")
 
 
 def _ordered_sum_cuda(x: torch.Tensor, dim: int) -> torch.Tensor:
     out_shape, plan = _ordered_plan(x.shape, x.stride(), dim)
     out = torch.empty(out_shape, dtype=x.dtype, device=x.device)
     if plan[0]:
-        _launch((_LIB or _lib()).ordered_sum, x, x.data_ptr(), out.data_ptr(), plan)
+        _build.launch("ordered_sum", "ordered_sum", x, _double(x), x.data_ptr(),
+                      out.data_ptr(), plan)
     return out
 
 
@@ -233,8 +208,8 @@ def _slot_sum_cuda(values: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
     out_shape, plan = _slot_plan(values.shape, values.stride(), slots.shape, slots.stride())
     out = torch.empty(out_shape, dtype=values.dtype, device=values.device)
     if out.numel():
-        _launch((_LIB or _lib()).slot_sum, values, values.data_ptr(), slots.data_ptr(),
-                out.data_ptr(), plan)
+        _build.launch("ordered_sum", "slot_sum", values, _double(values), values.data_ptr(),
+                      slots.data_ptr(), out.data_ptr(), plan)
     return out
 
 

@@ -42,7 +42,6 @@ to part j % lanes); :func:`sliced_spmv_reference` repeats its arithmetic.
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 from typing import Tuple
 
@@ -51,9 +50,6 @@ import torch
 
 from mlamg_torch.device import resolve_device
 from mlamg_torch.ops import _build
-# kernel launches by name (the counter store of utils/profiler.py); a wrapper
-# adds one per successful launch
-from mlamg_torch.utils.profiler import LAUNCHES
 
 SLICE = 32  # rows per slice: one warp, so every slot load is one 128 B access
 SIGMA = 256  # rows per degree-sorting window
@@ -242,59 +238,22 @@ def sliced_spmv_reference(W: WindowedELL, x: torch.Tensor,
     return y[:n]
 
 
-_LIB = None
-
-
-def _lib():
-    global _LIB
-    if _LIB is None:
-        lib = _build.kernel_library("well_spmv")
-        p = ctypes.c_void_p
-        lib.well_spmv_f32.argtypes = [
-            p, p, p, p, p, p, p, p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_float, p,
-        ]
-        lib.well_spmv_f32.restype = ctypes.c_int
-        _LIB = lib
-    return _LIB
-
-
-def _check_vector(name: str, v: torch.Tensor, n: int, device) -> None:
-    if v.dtype != torch.float32 or v.shape != (n,) or not v.is_contiguous():
-        raise ValueError(
-            f"well_spmv: {name} must be a contiguous float32 ({n},) tensor, "
-            f"got {v.dtype} {tuple(v.shape)} contiguous={v.is_contiguous()}"
-        )
-    if v.device != device:
-        raise ValueError(f"well_spmv: {name} is on {v.device}, operator on {device}")
-
-
 def _well_spmv_cuda(W: WindowedELL, x: torch.Tensor, c, alpha: float):
     n = W.shape[0]
-    dev = W.device
     if W.sdata.dtype != torch.float32 or W.scol.dtype != torch.int32:
         raise ValueError("well_spmv: the CUDA kernel takes float32 sdata and int32 scol")
     if W.lanes not in LANES:
         raise ValueError(f"well_spmv: lanes must be one of {LANES}, got {W.lanes}")
-    _check_vector("x", x, n, dev)
+    if x.dtype != torch.float32 or (c is not None and c.dtype != torch.float32):
+        raise ValueError("well_spmv: the CUDA kernel takes float32 x and c")
+    _build.check_vector("well_spmv", "x", x, n, W.device)
     if c is not None:
-        _check_vector("c", c, n, dev)
-    if dev.index != torch.cuda.current_device():
-        raise ValueError(
-            f"well_spmv: operands on {dev} but the current device is "
-            f"cuda:{torch.cuda.current_device()}"
-        )
-    y = torch.empty(n, dtype=torch.float32, device=dev)
-    rc = _lib().well_spmv_f32(
-        W.sdata.data_ptr(), W.scol.data_ptr(), W.slice_ptr.data_ptr(),
-        W.slice_w.data_ptr(), W.row_perm.data_ptr(), x.data_ptr(),
-        None if c is None else c.data_ptr(), y.data_ptr(),
-        n, W.n_slices, W.lanes, float(alpha),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    if rc != 0:
-        raise RuntimeError(f"well_spmv: kernel launch failed with CUDA error {rc}")
-    LAUNCHES["well_spmv"] += 1
+        _build.check_vector("well_spmv", "c", c, n, W.device)
+    y = torch.empty(n, dtype=torch.float32, device=W.device)
+    _build.launch("well_spmv", "well_spmv_f32", W.sdata, W.sdata.data_ptr(),
+                  W.scol.data_ptr(), W.slice_ptr.data_ptr(), W.slice_w.data_ptr(),
+                  W.row_perm.data_ptr(), x.data_ptr(), None if c is None else c.data_ptr(),
+                  y.data_ptr(), n, W.n_slices, W.lanes, float(alpha))
     return y
 
 

@@ -28,7 +28,7 @@ from mlamg_torch.ops import matmul
 from mlamg_torch.ops.dia import (
     DIA, dia_jacobi_operator, dia_spmm, dia_spmv, dia_spmv_reference, dia_spmv_t,
 )
-from mlamg_torch.ops.unstructured import LAUNCHES
+from mlamg_torch.utils.profiler import LAUNCHES
 
 CPU = "cpu"
 

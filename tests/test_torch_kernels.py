@@ -15,7 +15,6 @@ import math
 import os
 import shutil
 import sys
-import types
 
 import numpy as np
 import pytest
@@ -32,8 +31,9 @@ from mlamg_torch.ops.segment import (
 )
 from mlamg_torch.ops.sparse import segment_slots
 from mlamg_torch.ops.unstructured import (
-    LANES, LAUNCHES, WindowedELL, sliced_spmv_reference, well_spmv, well_spmv_reference,
+    LANES, WindowedELL, sliced_spmv_reference, well_spmv, well_spmv_reference,
 )
+from mlamg_torch.utils.profiler import LAUNCHES
 
 
 def hull(n=800, seed=5):
@@ -273,11 +273,12 @@ def test_ordered_sums_on_the_cpu_are_the_plain_chain(monkeypatch):
     assert LAUNCHES["ordered_sum"] == before
 
 
-def emulate_launch(fn, t, *args):
+def emulate_launch(name, entry, t, double, *args):
     """The kernel's loops in Python on the launch's arguments, reading the
     tensors' storage as the kernel reads device memory."""
+    assert name == "ordered_sum" and double == (t.dtype == torch.float64)
     plan = list(args[-1])
-    if len(args) == 3:  # ordered_sum: x, out, plan
+    if entry == "ordered_sum":  # x, out, plan
         out_ptr = args[1]
         n_out, w, stride_w, geom = plan[0], plan[1], plan[2], plan[3:]
         inner, slots = 1, None
@@ -316,8 +317,7 @@ def test_ordered_sum_launch_arguments_give_the_chain(monkeypatch, form):
     """The wrapper's launch arguments (merged geometry, strides, slot
     strides) run through the kernel's loops in Python give the plain
     chain's bits, on contiguous, sliced and transposed inputs."""
-    monkeypatch.setattr(segment, "_launch", emulate_launch)
-    monkeypatch.setattr(segment, "_LIB", types.SimpleNamespace(ordered_sum=None, slot_sum=None))
+    monkeypatch.setattr(_build, "launch", emulate_launch)
     rng = np.random.RandomState(2)
     for dtype in (torch.float32, torch.float64):
         if form == "ordered_sum":

@@ -345,7 +345,7 @@ def test_surface_imports_build_no_kernel_and_touch_no_card():
             "mlamg_torch.train, mlamg_torch.parallel, mlamg_torch.deploy, mlamg_torch.viz\n"
             "from mlamg_torch.ops import _build, segment\n"
             "assert not torch.cuda.is_initialized()\n"
-            "assert not _build._LIBS and segment._LIB is None, _build._LIBS\n"
+            "assert not _build._LIBS, _build._LIBS\n"
             "from mlamg_torch.mg import twolevel_solve, vcycle_solve, pcg, fgmres\n"
             "from mlamg_torch.graph import lloyd_aggregation, LLOYD_DISTANCES\n"
             "from mlamg_torch.models import FullAggNet, amg_loss\n"

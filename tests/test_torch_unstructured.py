@@ -37,8 +37,9 @@ from mlamg_torch.graph.strength import strength_measure
 from mlamg_torch.ops import matmul, segment
 from mlamg_torch.ops.sparse import CSR
 from mlamg_torch.ops.unstructured import (
-    LAUNCHES, WindowedELL, rcm_spmv_setup, well_spmv, well_spmv_reference,
+    WindowedELL, rcm_spmv_setup, well_spmv, well_spmv_reference,
 )
+from mlamg_torch.utils.profiler import LAUNCHES
 
 # the module: the package re-exports its function under the same name, as
 # mlamg_tpu.graph does
