@@ -72,8 +72,11 @@ Phases (each prints one JSON line; any failure exits non-zero):
    (+-0.03), the ``dia_spmv`` launches of setup and cycles against the
    counts derived from the hierarchy, the kernel on every level operator,
    and a seed-1 random right-hand side solved to a float64 relative
-   residual below 1e-3.  Times a V-cycle (CUDA events and wall clock) and
-   reads a torch.profiler trace of three V-cycles.
+   residual below 1e-3.  Holds 7 V-cycles on a seed-2 random b, each a
+   replay of ``vcycle``'s CUDA graph, against 7 eager cycles (the
+   recursion ``_cycle`` called directly) bit for bit.  Times a replayed
+   and an eager V-cycle (CUDA events and wall clock) and reads a
+   torch.profiler trace of three replayed V-cycles.
 7. twolevel: ``bench_twolevel``'s configuration: ``twolevel_solve`` on the
    512^2 Poisson with a factored SA prolongator over 16x16 boxes
    (omega 0.65) and an inverse coarse solve, 24 iterations fused and
@@ -1460,10 +1463,10 @@ def stage_seconds(h) -> dict:
 
 def structured_phase(A_sp, Ad, stages: dict, rng) -> tuple[dict, int, list]:
     import torch
-    from mlamg_torch.mg.cycle import vcycle
+    from mlamg_torch.mg.cycle import _cycle, _interp, _levels, _restrict, vcycle
     from mlamg_torch.mg.structured import build_structured_hierarchy
     from mlamg_torch.ops.matmul import spmv_affine
-    from mlamg_torch.utils.profiler import LAUNCHES
+    from mlamg_torch.utils.profiler import GRAPHS, LAUNCHES
 
     n = Ad.shape[0]
     x0 = torch.from_numpy(np.random.RandomState(0).randn(n).astype(np.float32)).cuda()
@@ -1503,13 +1506,36 @@ def structured_phase(A_sp, Ad, stages: dict, rng) -> tuple[dict, int, list]:
 
     level_errs = [check_dia_kernel(A, rng, f"level {l}") for l, A in enumerate(h.As)]
 
-    cycle_ms = cuda_ms(lambda: vcycle(h, b, x0, **VCYCLE), iters=10, warmup=2)
-    t0 = time.time()
-    for _ in range(10):
-        vcycle(h, b, x0, **VCYCLE)
-    torch.cuda.synchronize()
-    cycle_wall_ms = (time.time() - t0) / 10 * 1e3
+    # vcycle replays its CUDA graph of the cycle; the recursion called
+    # directly (vcycle's defaults besides VCYCLE) is the eager cycle
+    levels = _levels(h, VCYCLE["smoother"])
+
+    def eager_cycle(b, x):
+        return _cycle(levels, h.coarse, _interp, _restrict, b, x, omega=0.666,
+                      lmin_frac=1.0 / 15.0, gamma=1, **VCYCLE)
+
+    timed = {}
+    for name, fn in (("replay", lambda: vcycle(h, b, x0, **VCYCLE)),
+                     ("eager", lambda: eager_cycle(b, x0))):
+        ms = cuda_ms(fn, iters=10, warmup=2)
+        t0 = time.time()
+        for _ in range(10):
+            fn()
+        torch.cuda.synchronize()
+        timed[name] = ms, (time.time() - t0) / 10 * 1e3
+    (cycle_ms, cycle_wall_ms), (eager_ms, eager_wall_ms) = timed["replay"], timed["eager"]
     trace = device_trace(lambda: vcycle(h, b, x0, **VCYCLE), iters=3, kernel="dia_spmv")
+
+    # 7 replayed cycles against 7 eager ones on a random b, bit for bit
+    bg = torch.from_numpy(np.random.RandomState(2).randn(n).astype(np.float32)).cuda()
+    xg = xe = torch.zeros_like(bg)
+    replays = GRAPHS["vcycle.replay"]
+    for i in range(7):
+        xg, xe = vcycle(h, bg, xg, **VCYCLE), eager_cycle(bg, xe)
+        check(torch.equal(xg, xe), f"replayed V-cycle {i} differs from the eager one")
+    check(GRAPHS["vcycle.replay"] - replays == 7,
+          f"{GRAPHS['vcycle.replay'] - replays} of 7 V-cycles replayed the graph")
+    del bg, xg, xe
 
     # random right-hand side: V-cycles until the f32 residual reaches
     # 1e-6 * ||b|| or stops falling, then the float64 residual on the host
@@ -1544,6 +1570,9 @@ def structured_phase(A_sp, Ad, stages: dict, rng) -> tuple[dict, int, list]:
         "level_kernel_rel_err": [e[1] for e in level_errs],
         "ms_per_vcycle": cycle_ms,
         "wall_ms_per_vcycle": cycle_wall_ms,
+        "eager_ms_per_vcycle": eager_ms,
+        "eager_wall_ms_per_vcycle": eager_wall_ms,
+        "replays_equal_eager_cycles": 7,
         "vcycle_trace": trace,
         "rhs_f32_rel_residuals": [r / bnorm for r in res],
         "rhs_cycles": len(res),

@@ -10,8 +10,9 @@ test reads each iteration's norm on the host.
 One recursion, :func:`_cycle`, runs the V/W-cycle of :func:`vcycle` and of
 ``mg/amg_unstructured.py``'s ``uvcycle``; one loop, :func:`_solve`, runs
 ``vcycle_solve``, ``twolevel_solve`` and ``uvcycle_solve`` (with its
-:class:`CycleGraph`, where the caller passes a dict of graphs).  This
-module imports none of the solvers built on it.
+:class:`CycleGraph`, where the caller passes a dict of graphs); ``vcycle``
+replays a :class:`CycleGraph` of its own on an all-DIA hierarchy on the
+card.  This module imports none of the solvers built on it.
 
 Ported: ``twolevel_solve`` with weighted Jacobi (fused or not),
 Chebyshev (``lmax`` by power iteration unless given) and multicolor
@@ -206,6 +207,11 @@ class Hierarchy:
     Dinvs: tuple
     coarse: CoarseSolver
     lmaxs: Tuple[float, ...] = ()
+    # vcycle's CUDA graphs of one cycle (CycleGraph), by cycle setting and b's
+    # shape, dtype and device (None after a key's first, eager, cycle); freed
+    # with the hierarchy
+    graphs: dict = dataclasses.field(default_factory=dict, init=False, compare=False,
+                                     repr=False)
 
     @property
     def num_levels(self) -> int:
@@ -332,14 +338,72 @@ def vcycle(h: Hierarchy, b: torch.Tensor, x: torch.Tensor, *, omega: float = 0.6
     sequence whose last entry covers the deeper levels.  ``gamma=1`` is a
     V-cycle, ``gamma=2`` a W-cycle.
 
-    Spans (``utils/profiler.py``, while recording): ``cycle``; a ``level``
-    (``level=l``) per visit of a level, holding ``pre_smooth``,
+    On a CUDA ``b`` over an all-DIA hierarchy (``build_structured_hierarchy``'s)
+    the cycle is a :class:`CycleGraph`, one per cycle setting and b's shape,
+    dtype and device, kept in ``h.graphs``: a key's first call runs eagerly
+    (it warms the kernels, cuBLAS and the allocator), its second captures the
+    cycle and replays it, and every later call copies b and x into the
+    graph's buffers and replays.  The x returned is never the graph's own
+    buffer.  ``GRAPHS`` counts each such call under ``vcycle.eager``,
+    ``.capture`` or ``.replay``.  Other hierarchies, and every hierarchy on
+    the CPU, run the cycle eagerly and count nothing.
+
+    Every such graph on a device keeps its temporaries in one memory pool
+    (:func:`_vcycle_pool`), so a hierarchy built per request reuses the
+    memory of the graphs freed before it: a private pool each would stay
+    in the allocator's cache after its graph is freed, and the cache is
+    not emptied during a capture, so the captures would run out of
+    memory.  A graph holds nothing in the pool between replays, so any
+    graphs may share it as long as their replays do not overlap: replay
+    them on one stream.
+
+    Spans (``utils/profiler.py``, while recording): ``cycle`` (with
+    ``graph=`` ``eager``, ``capture`` or ``replay`` where graphed); a
+    ``level`` (``level=l``) per visit of a level, holding ``pre_smooth``,
     ``restrict`` (the residual and its restriction), the next level's
     visits or, on the deepest, ``coarse_solve``, then ``interp`` (the
-    interpolation and the correction) and ``post_smooth``."""
-    with Profiler("cycle"):
-        return _cycle(_levels(h, smoother), h.coarse, _interp, _restrict, b, x,
-                      smoother=smoother, omega=omega, nu=nu, lmin_frac=lmin_frac, gamma=gamma)
+    interpolation and the correction) and ``post_smooth``.  A replayed
+    cycle has no spans inside it."""
+    levels = _levels(h, smoother)
+
+    def cycle(b, x):
+        return _cycle(levels, h.coarse, _interp, _restrict, b, x, smoother=smoother,
+                      omega=omega, nu=nu, lmin_frac=lmin_frac, gamma=gamma)
+
+    if b.device.type != "cuda" or not all(isinstance(A, DIA) for A in h.As):
+        with Profiler("cycle"):
+            return cycle(b, x)
+    nus = (int(nu),) if isinstance(nu, numbers.Integral) else tuple(int(v) for v in nu)
+    key = (smoother, omega, nus, lmin_frac, gamma, tuple(b.shape), b.dtype, b.device)
+    g = h.graphs.get(key)
+    mode = "eager" if key not in h.graphs else "capture" if g is None else "replay"
+    with Profiler("cycle", graph=mode):
+        if mode == "eager":
+            x = cycle(b, x)
+            h.graphs[key] = None
+        else:
+            if g is None:
+                g = h.graphs[key] = CycleGraph(cycle, b, x, pool=_vcycle_pool(b.device))
+            else:
+                g.b.copy_(b)
+                g.x.copy_(x)
+            x = g.replay().clone()
+    GRAPHS[f"vcycle.{mode}"] += 1
+    return x
+
+
+_VCYCLE_POOLS: dict = {}
+
+
+def _vcycle_pool(device: torch.device):
+    """The memory pool that ``vcycle``'s graphs on ``device`` share: that of
+    a one-add graph captured at the first capture there and kept for the
+    process, since a pool is torn down once no graph that uses it is left."""
+    anchor = _VCYCLE_POOLS.get(device)
+    if anchor is None:
+        t = torch.zeros(1, device=device)
+        anchor = _VCYCLE_POOLS[device] = CycleGraph(lambda b, x: b + x, t, t)
+    return anchor.graph.pool()
 
 
 def vcycle_solve(h: Hierarchy, b: torch.Tensor, x0: torch.Tensor, *,
@@ -361,15 +425,23 @@ def vcycle_solve(h: Hierarchy, b: torch.Tensor, x0: torch.Tensor, *,
 # ---------------------------------------------------------------------------
 
 
+_CAPTURE_STREAMS: dict = {}
+
+
 class CycleGraph:
     """One cycle captured as a CUDA graph: its static ``b`` and ``x``, and
     the graph, which reads the operators' tensors by address and holds its
-    temporaries in a memory pool of its own.  A replay runs the cycle on
-    ``b`` and ``x`` and leaves the result in ``x``; the cycle's host floats
-    (``lmax``, ``omegas``, the Chebyshev recurrence's scalars) are baked
-    in, and the tensors it reads are frozen.
+    temporaries in a memory pool of its own, or in ``pool`` (a graph's
+    ``pool()``) shared with other graphs whose replays never overlap its
+    own.  A replay runs the cycle on ``b`` and ``x`` and leaves the result
+    in ``x``; the cycle's host floats (``lmax``, ``omegas``, the Chebyshev
+    recurrence's scalars) are baked in, and the tensors it reads are
+    frozen.
 
-    It is captured on a side stream with ``capture_begin``/``capture_end``
+    It is captured on a side stream, one per device for every graph (the
+    allocator hands a freed block only to allocations on the stream that
+    freed it, so graphs captured on one stream reuse a shared pool's
+    blocks), with ``capture_begin``/``capture_end``
     (``torch.cuda.graph`` would run a garbage collection and empty the
     allocator's cache first), from inputs the caller has warmed with one
     eager cycle.  Capturing runs nothing: the caller replays after it.
@@ -379,14 +451,16 @@ class CycleGraph:
     ``LAUNCHES`` counts launches on the device.  The graph keeps no
     reference to ``cycle``, so it is freed with whatever owns it."""
 
-    def __init__(self, cycle, b: torch.Tensor, x: torch.Tensor):
+    def __init__(self, cycle, b: torch.Tensor, x: torch.Tensor, pool=None):
         self.b, self.x = b.clone(), x.clone()
         self.graph = torch.cuda.CUDAGraph()
         counted = LAUNCHES.copy()
-        stream = torch.cuda.Stream(b.device)
+        stream = _CAPTURE_STREAMS.get(b.device)
+        if stream is None:
+            stream = _CAPTURE_STREAMS[b.device] = torch.cuda.Stream(b.device)
         stream.wait_stream(torch.cuda.current_stream(b.device))
         with torch.cuda.stream(stream):
-            self.graph.capture_begin()  # without a pool: a private one
+            self.graph.capture_begin(pool=pool)  # None: a private pool
             try:
                 self.x.copy_(cycle(self.b, self.x))
             finally:

@@ -34,7 +34,9 @@ on or off; a CUDA graph's capture counts none, and each replay adds the
 launches of the kernels it holds.
 ``GRAPHS`` counts the cycles of ``uvcycle_solve`` by how each ran:
 ``uvcycle.eager``, ``uvcycle.capture`` (captured as a CUDA graph, then
-replayed once) or ``uvcycle.replay``; it too counts always.
+replayed once) or ``uvcycle.replay``, and the graphed calls of
+``vcycle`` (an all-DIA hierarchy on the card) under ``vcycle.eager``,
+``vcycle.capture`` and ``vcycle.replay``; it too counts always.
 ``SYNCS`` counts where the learned two-level path makes the host wait for
 the device (a value read back or a host array copied in), by site:
 ``coloring`` (the pattern read, the colours copied over),
